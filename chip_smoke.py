@@ -20,12 +20,42 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``cfgs/det_sample.yaml`` at full width over a synthetic KITTI val split
    of 4300 frustums (TEST.BATCH_SIZE 32, TPU.INFER_GROUP 2, weights from a
    ``.pth``); checks the result files, the detections, the evaluator's AP
-   and that the main path launched the kernel; prints the frustums/s.
+   and that the main path launched the kernel; prints the frustums/s;
+6. modes: the single-scale grouping (kernel 2) and the select alone
+   (kernel 3) against their plain versions on the card, bit for bit
+   (grouped, idx and cnt), at the flagship shapes (B=256) and on every edge
+   case of ``tests/test_select_pallas.py``, kernel 2 also against kernel 1
+   per scale; both timed with their plain versions at B=256 on scales 1
+   (M=280, K=32) and 4 (M=35, K=128), in turns (plain, kernel, kernel,
+   plain);
+7. profiler: ``frustum_convnet_tpu_torch.tools.profile_stages.main`` at
+   batch 32, which must launch all three kernels; prints its stage lines;
+8. train step: one step of the flagship model at batch 8 of the synthetic
+   train split, on the card against the port on the CPU with the same
+   seeded weights (TF32 off): the eight losses, and each parameter's
+   gradient before the optimizer, also against the CPU in float64; and the
+   train-mode pool's first-slot routing of tied slots on the card;
+9. trainer: ``frustum_convnet_tpu_torch.engine.train.main`` on
+   ``cfgs/det_sample.yaml`` at full width (TRAIN.BATCH_SIZE 32, 2 epochs of
+   32 steps, disp 8, metrics sampled every disp steps) over a synthetic
+   labeled split of 1024 train and 256 val frustums; checks finite losses,
+   a kernel-1 launch on every train and eval step, the checkpoints (the
+   final one reloads strictly into a fresh model with a bit-identical eval
+   forward) and a resume at epoch 2; prints the steady train ms/step and
+   frustums/s.
 
-The split is written here from seeded numpy in the reference's 7-stream
-rgb-detection pickle layout (id, box2d, points, type, frustum_angle, prob,
-calib), with KITTI ``label_2`` ground truth and ``image_sets/val.txt``, and
-the driver reads it like any other split.
+The splits are written here from seeded numpy, with one car generator: the
+val split in the reference's 7-stream rgb-detection pickle layout (id,
+box2d, points, type, frustum_angle, prob, calib), with KITTI ``label_2``
+ground truth and ``image_sets/val.txt``; the train and labeled val splits
+in the 11-stream labeled layout (id, box2d, box3d, points, seg, type,
+heading, size, frustum_angle, gt_box2d, calib). The drivers read them like
+any other split.
+
+Each kernel's ``launches`` in the kernels record is counted over one main
+path, with the counts set to 0 just before it: kernel 1 over the trainer's
+run (phase 9), kernels 2 and 3 over the profiler's (phase 7). Launches that
+compare a kernel with its plain version are not counted.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -57,6 +87,12 @@ IMG_W, IMG_H = 1242, 375
 CAR_LWH, CAR_LWH_SIGMA = (3.9, 1.6, 1.5), (0.2, 0.1, 0.1)
 RGB_DET_FIELDS = ("id", "box2d", "points", "type", "frustum_angle", "prob",
                   "calib")
+LABELED_FIELDS = ("id", "box2d", "box3d", "points", "seg", "type", "heading",
+                  "size", "frustum_angle", "gt_box2d", "calib")
+# KITTI's 8-corner order (bottom face first, y down): signs of l/2, h/2, w/2
+CORNER_SIGNS = np.array([[1, 1, -1, -1, 1, 1, -1, -1],
+                         [1, 1, 1, 1, -1, -1, -1, -1],
+                         [1, -1, -1, 1, 1, -1, -1, 1]], np.float64).T
 
 
 def _cuda_time_ms(fn, iters: int) -> float:
@@ -70,6 +106,15 @@ def _cuda_time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _in_turns(kernel, plain, kernel_iters: int = 50, plain_iters: int = 10):
+    """(kernel ms, plain ms): timed plain, kernel, kernel, plain."""
+    p1 = _cuda_time_ms(plain, plain_iters)
+    k1 = _cuda_time_ms(kernel, kernel_iters)
+    k2 = _cuda_time_ms(kernel, kernel_iters)
+    p2 = _cuda_time_ms(plain, plain_iters)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
 def flagship_cfg(data_root: str | None = None):
@@ -106,18 +151,102 @@ def phase_kernel(spec, device) -> dict:
     pts, refs, dzs, ks = cases["flagship_b256"]
     t_pts = torch.from_numpy(pts).to(device)
     t_refs = [torch.from_numpy(r).to(device) for r in refs]
-    kernel = lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks)
-    plain = lambda: group_depth_point_multi(t_pts, t_refs, dzs, ks)
-    p1 = _cuda_time_ms(plain, 10)
-    k1 = _cuda_time_ms(kernel, 50)
-    k2 = _cuda_time_ms(kernel, 50)
-    p2 = _cuda_time_ms(plain, 10)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    ms, plain_ms, (k1, k2, p1, p2) = _in_turns(
+        lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks),
+        lambda: group_depth_point_multi(t_pts, t_refs, dzs, ks))
     out_bytes = 256 * sum(m * k * 3 * 4 for m, k in zip(spec.num_refs, spec.nsamples))
     print(f"[kernel] flagship B=256: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), "
           f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); output "
           f"{out_bytes / 1e6:.1f} MB -> {out_bytes / ms / 1e6:.1f} GB/s")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_modes(spec, device) -> dict:
+    """Kernels 2 (one scale) and 3 (select only) against their plain
+    versions, bit for bit, and kernel 2 against kernel 1 per scale; timed at
+    B=256 on scales 1 and 4. Returns their kernels-record numbers (times of
+    scale 1, M=280, K=32)."""
+    from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
+    from frustum_convnet_tpu_torch.ops import query_depth_point as qdp
+
+    cases = dict(grouping_cases.edge_cases())
+    cases["flagship_b256"] = grouping_cases.flagship_case(spec, batch=256)
+    err = {"group_depth_point": 0.0, "query_depth_point": 0.0}
+    for name, (pts, refs, dzs, ks) in cases.items():
+        t_pts = torch.from_numpy(pts).to(device)
+        z_points = t_pts[..., 2].contiguous()
+        multi = select_cuda.group_depth_point_multi_cuda(
+            t_pts, [torch.from_numpy(r).to(device) for r in refs], dzs, ks)
+        for ref, d, k, (gm, cm) in zip(refs, dzs, ks, multi):
+            t_ref = torch.from_numpy(ref).to(device)
+            z_ref = t_ref[..., 2].contiguous()
+            g, c = select_cuda.group_depth_point_cuda(t_pts, t_ref, d, k)
+            g0, c0 = qdp.group_depth_point(t_pts, t_ref, d, k)
+            idx, cnt = select_cuda.query_depth_point_cuda(z_points, z_ref, d, k)
+            idx0, cnt0 = qdp.query_depth_point(z_points, z_ref, d, k)
+            torch.cuda.synchronize()
+            if not (g.shape == g0.shape and torch.equal(g, g0) and torch.equal(c, c0)):
+                raise AssertionError(f"kernel 2 != plain version on case {name}")
+            if not (torch.equal(g, gm) and torch.equal(c, cm)):
+                raise AssertionError(f"kernel 2 != kernel 1 on case {name}")
+            if not (idx.shape == idx0.shape and torch.equal(idx, idx0)
+                    and torch.equal(cnt, cnt0)):
+                raise AssertionError(f"kernel 3 != plain version on case {name}")
+            err["group_depth_point"] = max(err["group_depth_point"],
+                                           (g - g0).abs().max().item())
+            err["query_depth_point"] = max(err["query_depth_point"],
+                                           (idx - idx0).abs().max().item())
+    print(f"[modes] kernels 2 and 3 bit-identical to their plain versions (and "
+          f"kernel 2 to kernel 1) on {len(cases)} cases (flagship B=256 and "
+          f"{len(cases) - 1} edge cases)")
+
+    pts, refs, dzs, ks = cases["flagship_b256"]
+    t_pts = torch.from_numpy(pts).to(device)
+    z_points = t_pts[..., 2].contiguous()
+    out = {}
+    for i in (0, 3):
+        t_ref = torch.from_numpy(refs[i]).to(device)
+        z_ref = t_ref[..., 2].contiguous()
+        m, d, k = t_ref.shape[1], dzs[i], ks[i]
+        for name, kernel, plain, out_bytes in (
+                ("group_depth_point",
+                 lambda: select_cuda.group_depth_point_cuda(t_pts, t_ref, d, k),
+                 lambda: qdp.group_depth_point(t_pts, t_ref, d, k),
+                 256 * m * k * 3 * 4),
+                ("query_depth_point",
+                 lambda: select_cuda.query_depth_point_cuda(z_points, z_ref, d, k),
+                 lambda: qdp.query_depth_point(z_points, z_ref, d, k),
+                 256 * m * k * 4)):
+            ms, plain_ms, (k1, k2, p1, p2) = _in_turns(kernel, plain)
+            print(f"[modes] {name} scale {i + 1} (M={m}, K={k}) B=256: kernel "
+                  f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
+                  f"({p1:.4f}, {p2:.4f}); output {out_bytes / 1e6:.2f} MB -> "
+                  f"{out_bytes / ms / 1e6:.1f} GB/s")
+            if i == 0:
+                out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def _counters():
+    from frustum_convnet_tpu_torch.ops import select_cuda
+
+    return {"group_depth_point_multi": select_cuda.group_depth_point_multi_cuda,
+            "group_depth_point": select_cuda.group_depth_point_cuda,
+            "query_depth_point": select_cuda.query_depth_point_cuda}
+
+
+def phase_profiler() -> dict:
+    """The stage profiler at batch 32; returns each kernel's launches in it."""
+    from frustum_convnet_tpu_torch.tools import profile_stages
+
+    for c in _counters().values():
+        c.launches = 0
+    profile_stages.main(["--batch", "32"])
+    launches = {name: c.launches for name, c in _counters().items()}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the profiler did not launch every kernel: {launches}")
+    print(f"[profiler] kernel launches: {launches}")
+    return launches
 
 
 def _roty(t: float) -> np.ndarray:
@@ -150,14 +279,75 @@ def label_rule(ladder, center, lhw, rot) -> np.ndarray:
     return inside
 
 
+def _section_depths(spec) -> np.ndarray:
+    """Depths of the output (scale-2) sections."""
+    return np.arange(0, spec.max_depth, spec.strides[1]) + spec.strides[1] / 2
+
+
+def synthetic_car(rng, spec) -> dict:
+    """One car 5-40 m away (at least 27 px tall) and its frustum: LiDAR
+    returns on the car falling off with range and background returns through
+    the whole frustum, the 2D box jittered 5% as a detector's is.
+
+    Returns the KITTI label line, box2d (jittered) and gt_box2d, the points
+    (n, 4) float32 with intensity, seg (n,) (1 on the car), the 3D box
+    (center, (l, w, h), ry, corners (8, 3) in KITTI order), frustum_angle,
+    a detector prob, and ``fg``: the output sections ``label_rule`` marks
+    foreground on the ladder through the 2D box center."""
+    depth = rng.uniform(5.0, 40.0)
+    lateral = rng.uniform(-0.2, 0.2) * depth
+    l, w, h = (m + rng.normal(0, s) for m, s in zip(CAR_LWH, CAR_LWH_SIGMA))
+    ry = rng.uniform(-np.pi, np.pi)
+    rot = _roty(ry)
+    center = np.array([lateral, 1.65 - h / 2, depth])
+    box_signs = np.array([[sx, sy, sz] for sx in (-.5, .5) for sy in (-.5, .5)
+                          for sz in (-.5, .5)])
+    uv = _to_image(box_signs * [l, h, w] @ rot.T + center)
+    (fx1, fy1), (fx2, fy2) = uv.min(0), uv.max(0)
+    x1, x2 = np.clip([fx1, fx2], 0, IMG_W - 1)
+    y1, y2 = np.clip([fy1, fy2], 0, IMG_H - 1)
+    trunc = 1.0 - (x2 - x1) * (y2 - y1) / ((fx2 - fx1) * (fy2 - fy1))
+    alpha = (ry - np.arctan2(lateral, depth) + np.pi) % (2 * np.pi) - np.pi
+    label = (f"Car {trunc:.2f} 0 {alpha:.2f} {x1:.2f} {y1:.2f} "
+             f"{x2:.2f} {y2:.2f} {h:.2f} {w:.2f} {l:.2f} "
+             f"{lateral:.2f} {1.65:.2f} {depth:.2f} {ry:.2f}")
+    jw, jh = 0.05 * (x2 - x1), 0.05 * (y2 - y1)
+    box2d = np.array([max(0.0, x1 + rng.uniform(-jw, jw)),
+                      max(0.0, y1 + rng.uniform(-jh, jh)),
+                      min(IMG_W - 1.0, x2 + rng.uniform(-jw, jw)),
+                      min(IMG_H - 1.0, y2 + rng.uniform(-jh, jh))])
+
+    n_car = int(np.clip(15000 / depth, 40, 2000))
+    car = rng.uniform(-0.5, 0.5, (n_car, 3)) * [l, h, w] @ rot.T + center
+    n_bg = 1200
+    bg = _to_rect(rng.uniform(box2d[0], box2d[2], n_bg),
+                  rng.uniform(box2d[1], box2d[3], n_bg),
+                  rng.uniform(2.0, spec.max_depth, n_bg))
+    pts = np.concatenate([car, bg])
+    uv = _to_image(pts)
+    keep = ((uv[:, 0] >= box2d[0]) & (uv[:, 0] < box2d[2])
+            & (uv[:, 1] >= box2d[1]) & (uv[:, 1] < box2d[3]))
+    pts = np.hstack([pts[keep], rng.uniform(0, 1, (keep.sum(), 1))])
+    seg = (np.arange(n_car + n_bg) < n_car)[keep].astype(np.int64)
+
+    cu, cv = (box2d[0] + box2d[2]) / 2, (box2d[1] + box2d[3]) / 2
+    ray = _to_rect(cu, cv, 20.0)
+    fg = label_rule(_to_rect(cu, cv, _section_depths(spec)), center, (l, h, w), rot)
+    return {"label": label, "box2d": box2d,
+            "gt_box2d": np.array([x1, y1, x2, y2]),
+            "points": pts.astype(np.float32), "seg": seg, "center": center,
+            "size": np.array([l, w, h]), "ry": ry,
+            "corners": CORNER_SIGNS * [l / 2, h / 2, w / 2] @ rot.T + center,
+            "frustum_angle": float(-np.arctan2(ray[2], ray[0])),
+            "prob": float(rng.uniform(0.7, 0.99)), "fg": fg}
+
+
 def make_val_split(work: str, spec, num_frames: int = 1075,
                    cars_per_frame: int = 4, seed: int = 1) -> dict:
     """Synthetic KITTI val split: ``num_frames`` frames of ``cars_per_frame``
-    cars, 5-40 m away (at least 27 px tall), with LiDAR returns on the car
-    falling off with range and background returns through the whole
-    frustum, 2D boxes jittered 5% as a detector's are. 1075 frames give 4300
-    frustums: 67 groups of two 32-frustum batches and a padded tail batch,
-    so the steady-state window spans 66 groups.
+    cars (``synthetic_car``). 1075 frames give 4300 frustums: 67 groups of
+    two 32-frustum batches and a padded tail batch, so the steady-state
+    window spans 66 groups.
 
     Also returns ``fg_labels`` (frustums, L) bool: the output sections that
     ``label_rule`` marks foreground on the ladder through each 2D box
@@ -168,59 +358,19 @@ def make_val_split(work: str, spec, num_frames: int = 1075,
     pickle_dir = os.path.join(work, "pickles")
     for d in (label_dir, pickle_dir, os.path.join(kitti_root, "image_sets")):
         os.makedirs(d)
-    z_sections = np.arange(0, spec.max_depth, spec.strides[1]) + spec.strides[1] / 2
-    box_signs = np.array([[sx, sy, sz] for sx in (-.5, .5) for sy in (-.5, .5)
-                          for sz in (-.5, .5)])
     streams = {k: [] for k in RGB_DET_FIELDS}
     labels_fg = []
     for frame in range(num_frames):
         labels = []
         for _ in range(cars_per_frame):
-            depth = rng.uniform(5.0, 40.0)
-            lateral = rng.uniform(-0.2, 0.2) * depth
-            l, w, h = (m + rng.normal(0, s) for m, s in zip(CAR_LWH, CAR_LWH_SIGMA))
-            ry = rng.uniform(-np.pi, np.pi)
-            rot = _roty(ry)
-            center = np.array([lateral, 1.65 - h / 2, depth])
-            uv = _to_image(box_signs * [l, h, w] @ rot.T + center)
-            (fx1, fy1), (fx2, fy2) = uv.min(0), uv.max(0)
-            x1, x2 = np.clip([fx1, fx2], 0, IMG_W - 1)
-            y1, y2 = np.clip([fy1, fy2], 0, IMG_H - 1)
-            trunc = 1.0 - (x2 - x1) * (y2 - y1) / ((fx2 - fx1) * (fy2 - fy1))
-            alpha = (ry - np.arctan2(lateral, depth) + np.pi) % (2 * np.pi) - np.pi
-            labels.append(f"Car {trunc:.2f} 0 {alpha:.2f} {x1:.2f} {y1:.2f} "
-                          f"{x2:.2f} {y2:.2f} {h:.2f} {w:.2f} {l:.2f} "
-                          f"{lateral:.2f} {1.65:.2f} {depth:.2f} {ry:.2f}")
-            jw, jh = 0.05 * (x2 - x1), 0.05 * (y2 - y1)
-            box2d = np.array([max(0.0, x1 + rng.uniform(-jw, jw)),
-                              max(0.0, y1 + rng.uniform(-jh, jh)),
-                              min(IMG_W - 1.0, x2 + rng.uniform(-jw, jw)),
-                              min(IMG_H - 1.0, y2 + rng.uniform(-jh, jh))])
-
-            n_car = int(np.clip(15000 / depth, 40, 2000))
-            car = rng.uniform(-0.5, 0.5, (n_car, 3)) * [l, h, w] @ rot.T + center
-            n_bg = 1200
-            bg = _to_rect(rng.uniform(box2d[0], box2d[2], n_bg),
-                          rng.uniform(box2d[1], box2d[3], n_bg),
-                          rng.uniform(2.0, spec.max_depth, n_bg))
-            pts = np.concatenate([car, bg])
-            uv = _to_image(pts)
-            keep = ((uv[:, 0] >= box2d[0]) & (uv[:, 0] < box2d[2])
-                    & (uv[:, 1] >= box2d[1]) & (uv[:, 1] < box2d[3]))
-            pts = np.hstack([pts[keep], rng.uniform(0, 1, (keep.sum(), 1))])
-
-            cu, cv = (box2d[0] + box2d[2]) / 2, (box2d[1] + box2d[3]) / 2
-            ray = _to_rect(cu, cv, 20.0)
-            labels_fg.append(label_rule(_to_rect(cu, cv, z_sections), center,
-                                        (l, h, w), rot))
-
+            car = synthetic_car(rng, spec)
+            labels.append(car["label"])
+            labels_fg.append(car["fg"])
             streams["id"].append(frame)
-            streams["box2d"].append(box2d)
-            streams["points"].append(pts.astype(np.float32))
             streams["type"].append("Car")
-            streams["frustum_angle"].append(float(-np.arctan2(ray[2], ray[0])))
-            streams["prob"].append(float(rng.uniform(0.7, 0.99)))
             streams["calib"].append({"P2": KITTI_P2.copy()})
+            for k in ("box2d", "points", "frustum_angle", "prob"):
+                streams[k].append(car[k])
         with open(os.path.join(label_dir, f"{frame:06d}.txt"), "w") as f:
             f.write("\n".join(labels) + "\n")
 
@@ -233,6 +383,30 @@ def make_val_split(work: str, spec, num_frames: int = 1075,
         f.write("\n".join(f"{i:06d}" for i in range(num_frames)) + "\n")
     return {"pickle_dir": pickle_dir, "gt_dir": label_dir, "idx_path": idx_path,
             "fg_labels": np.stack(labels_fg)}
+
+
+def make_train_split(pickle_dir: str, spec, num_train: int = 1024,
+                     num_val: int = 256, seed: int = 2) -> None:
+    """Labeled synthetic KITTI splits for training, one car a frustum
+    (``synthetic_car``): ``frustum_caronly_{train,val}.pickle`` in
+    ``pickle_dir``, in the 11-stream labeled layout that the stage-1
+    provider reads."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(pickle_dir, exist_ok=True)
+    for split, n in (("train", num_train), ("val", num_val)):
+        streams = {k: [] for k in LABELED_FIELDS}
+        for i in range(n):
+            car = synthetic_car(rng, spec)
+            streams["id"].append(i)
+            streams["box3d"].append(car["corners"])
+            streams["type"].append("Car")
+            streams["heading"].append(car["ry"])
+            streams["calib"].append({"P2": KITTI_P2.copy()})
+            for k in ("box2d", "points", "seg", "size", "frustum_angle", "gt_box2d"):
+                streams[k].append(car[k])
+        with open(os.path.join(pickle_dir, f"frustum_caronly_{split}.pickle"), "wb") as f:
+            for k in LABELED_FIELDS:
+                pickle.dump(streams[k], f, protocol=pickle.HIGHEST_PROTOCOL)
 
 
 def split_batch(dataset, indices, num_scales: int):
@@ -394,6 +568,173 @@ def phase_driver(model, split: dict, work: str) -> int:
     return launches
 
 
+def labeled_batch(dataset, indices, num_scales: int) -> dict:
+    """A collated labeled numpy batch of the split's frustums at ``indices``
+    (the train step's keys), as the trainer's loader prepares it."""
+    rng = np.random.default_rng(SMOKE_SEED)
+    items = [dataset.__getitem__(i, rng) for i in indices]
+    batch = {k: np.stack([it[k] for it in items])
+             for k in ("point_cloud", "one_hot", "cls_label", "box3d_center",
+                       "box3d_heading", "box3d_size", "size_class")}
+    batch["refs"] = tuple(np.stack([it["refs"][s] for it in items])
+                          for s in range(num_scales))
+    return batch
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+
+def phase_train_step(spec, device, model, dataset) -> None:
+    """One train step at batch 8: card against the CPU, before the optimizer.
+
+    Tolerances, for float32 with TF32 off: losses rtol 1e-4; each gradient
+    leaf within 5e-3 of the CPU's float32 gradient and of its float64 one, in
+    relative L2 norm. Exact agreement is not expected: the card sums in
+    another order than the CPU (cuDNN's convolution backward may sum with
+    atomics, in an order that changes from run to run), and the BatchNorm
+    bias and scale gradients are sums that cancel. Measured on an H100: the
+    card's worst leaf 1.6e-3 from float64 (a trunk BatchNorm bias), the
+    CPU's 5.2e-4. Parameters
+    after Adam are not compared: its first step is close to lr*sign(g), so a
+    near-zero gradient whose sign flips moves a parameter by up to 2*lr."""
+    import copy
+
+    from frustum_convnet_tpu_torch.models.net import slot_max_pool
+    from frustum_convnet_tpu_torch.ops import query_depth_point as qdp
+    from frustum_convnet_tpu_torch.parallel import train_step as ts
+
+    # the train-mode pool on the card: tied slots (first-hit fill) route the
+    # gradient to the first of them, as on the CPU
+    rng = np.random.default_rng(SMOKE_SEED)
+    x = rng.integers(0, 3, (8, 35, 128, 16)).astype(np.float32)
+    x[:, :, 40:] = x[:, :, :1]
+    cot = torch.from_numpy(rng.normal(size=(8, 35, 16)).astype(np.float32))
+    grads = []
+    for dev in ("cpu", device):
+        t = torch.from_numpy(x).to(dev).requires_grad_()
+        (slot_max_pool(t, train=True) * cot.to(dev)).sum().backward()
+        grads.append(t.grad.cpu())
+    if not (torch.equal(grads[0], grads[1])
+            and ((grads[1] != 0).sum(dim=2) <= 1).all()):
+        raise AssertionError("the train-mode pool routes tied slots differently "
+                             "on the card")
+
+    batch = labeled_batch(dataset, range(8), spec.num_scales)
+    groups = qdp.group_depth_point_multi(
+        torch.from_numpy(batch["point_cloud"]),
+        [torch.from_numpy(r) for r in batch["refs"]], spec.height_half, spec.nsamples)
+    partial = sum(int(((c > 0) & (c < k)).sum()) for (_, c), k in zip(groups, spec.nsamples))
+    if partial == 0:
+        raise AssertionError("the batch has no section with 0 < cnt < K")
+
+    cfg = ts.TrainStepConfig(compute_metrics=False)
+    runs = {}
+    for tag, dev, dtype in (("cpu", "cpu", torch.float32),
+                            ("cpu64", "cpu", torch.float64),
+                            ("card", device, torch.float32)):
+        m = copy.deepcopy(model).to(dev, dtype)
+        losses, _ = ts.loss_and_grads(m, spec, cfg, ts.to_device(batch, dev, dtype))
+        runs[tag] = ({k: v.item() for k, v in losses.items()},
+                     {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()})
+    (l_cpu, g_cpu), (l_64, g_64), (l_card, g_card) = (runs[k] for k in ("cpu", "cpu64", "card"))
+    for k, v in l_card.items():
+        if not np.isfinite(v) or abs(v - l_cpu[k]) > 1e-4 * abs(l_cpu[k]) + 1e-6:
+            raise AssertionError(f"{k}: card {v} vs CPU {l_cpu[k]}")
+    worst_cpu = max((_rel(g_card[n], g_cpu[n]), n) for n in g_card)
+    worst_64 = max((_rel(g_card[n], g_64[n]), n) for n in g_card)
+    worst_cpu64 = max((_rel(g_cpu[n], g_64[n]), n) for n in g_card)
+    if worst_cpu[0] > 5e-3 or worst_64[0] > 5e-3:
+        raise AssertionError(f"card gradients off: vs CPU {worst_cpu}, vs CPU "
+                             f"float64 {worst_64}")
+    print(f"[train step] batch 8, {partial} sections with 0 < cnt < K; losses "
+          f"card vs CPU max rel diff "
+          f"{max(abs(l_card[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu):.3e} "
+          f"(total {l_card['total_loss']:.6f}, CPU {l_cpu['total_loss']:.6f})")
+    print(f"[train step] {len(g_card)} gradient leaves, worst relative L2: card vs "
+          f"CPU {worst_cpu[0]:.3e} ({worst_cpu[1]}), card vs CPU float64 "
+          f"{worst_64[0]:.3e} ({worst_64[1]}), CPU vs CPU float64 "
+          f"{worst_cpu64[0]:.3e} (bound 5e-3)")
+
+
+def _logged_losses(log_path: str) -> list:
+    """Every number on the trainer's disp-interval lines."""
+    values = []
+    with open(log_path) as f:
+        for line in f:
+            if " it " in line and "total_loss" in line:
+                words = line.split("total_loss", 1)[1].split()
+                values += [float(w) for w in words[::2]]
+    return values
+
+
+def phase_trainer(spec, device, work: str, pickle_dir: str) -> dict:
+    """The port's training CLI entry point on the card; returns its kernel-1
+    launches and the steady epoch's stats."""
+    import math
+
+    from frustum_convnet_tpu_torch.engine import checkpoints
+    from frustum_convnet_tpu_torch.engine import train as trainer
+    from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+    from frustum_convnet_tpu_torch.ops import select_cuda
+
+    out_dir = os.path.join(work, "train_output")
+    args = ["--cfg", os.path.join(ROOT, "cfgs", "det_sample.yaml"),
+            "--device", "cuda", "DATA.DATA_ROOT", pickle_dir,
+            "OUTPUT_DIR", out_dir, "TRAIN.BATCH_SIZE", "32",
+            "TEST.BATCH_SIZE", "32", "disp", "8", "TPU.METRIC_INTERVAL", "-1",
+            "USE_TFBOARD", "False"]
+    kernel = select_cuda.group_depth_point_multi_cuda
+    kernel.launches = 0
+    res = trainer.main(args + ["TRAIN.MAX_EPOCH", "2"])
+    launches = kernel.launches
+
+    cfg = flagship_cfg(pickle_dir)
+    _, val_ds = trainer.make_datasets(cfg)
+    steps = sum(e["steps"] for e in res["epochs"])
+    evals = 2 * math.ceil(len(val_ds) / 32)
+    if [e["epoch"] for e in res["epochs"]] != [0, 1] or steps != 64:
+        raise AssertionError(f"expected 2 epochs of 32 steps, got {res['epochs']}")
+    if launches < steps + evals:
+        raise AssertionError(f"{launches} kernel launches for {steps} train and "
+                             f"{evals} eval steps")
+    losses = _logged_losses(os.path.join(out_dir, "train.log"))
+    if len(losses) < 8 * 8 or not np.isfinite(losses).all():
+        raise AssertionError(f"logged losses missing or non-finite: {losses[:16]}")
+    paths = checkpoints.checkpoint_paths(out_dir)
+    for key in ("final", "best"):
+        if not os.path.exists(paths[key]):
+            raise AssertionError(f"{paths[key]} was not written "
+                                 f"(best IoU {res['best_prec']})")
+
+    trained = res["state"].model.eval()
+    fresh = FrustumConvNet(spec)
+    checkpoints.load_checkpoint(paths["final"], fresh)
+    fresh.to(device).eval()
+    pts, one_hot, refs = split_batch(val_ds, range(32), spec.num_scales)
+    inputs = (pts.to(device), one_hot.to(device), [r.to(device) for r in refs])
+    with torch.no_grad():
+        a, b = trained(*inputs), fresh(*inputs)
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("model_final.pth does not reproduce the trained model")
+
+    resumed = trainer.main(args + ["TRAIN.MAX_EPOCH", "3", "RESUME", "True"])
+    if resumed["start_epoch"] != 2 or [e["epoch"] for e in resumed["epochs"]] != [2]:
+        raise AssertionError(f"resume started at {resumed['start_epoch']}, ran "
+                             f"{[e['epoch'] for e in resumed['epochs']]}")
+
+    steady = res["epochs"][1]
+    print(f"[trainer] 2 epochs of {steady['steps']} steps at batch 32 and "
+          f"{evals} eval batches: {launches} kernel launches; {len(losses)} "
+          f"logged losses, all finite; best IoU_0.7 {res['best_prec']:.4f} at "
+          f"epoch {res['best_epoch']}; model_final.pth reloads with a "
+          f"bit-identical forward; resumed at epoch 2")
+    print(f"[trainer] steady epoch (epoch 1): {steady['ms_per_step']:.3f} ms/step, "
+          f"{steady['frustums_per_s']:.1f} frustums/s over {steady['seconds']:.3f}s "
+          f"(CUDA events); epoch 0 {res['epochs'][0]['ms_per_step']:.3f} ms/step")
+    return {"launches": launches, "steady": steady}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -435,22 +776,42 @@ def main() -> int:
               f"fitted weights in {time.time() - t0:.1f}s")
         # 4. model on the card against the port on the CPU
         phase_model(spec, device, model, dataset)
-        # 5. the driver, through its CLI entry point
-        launches = phase_driver(model, split, work)
+        # 5. the serving driver, through its CLI entry point
+        serve_launches = phase_driver(model, split, work)
+        print(f"[driver] kernel 1 launches on the serving path: {serve_launches}")
+        # 6. kernels 2 and 3 against their plain versions
+        modes = phase_modes(spec, device)
+        # 7. the stage profiler, which runs kernels 1, 2 and 3
+        prof_launches = phase_profiler()
+
+        t0 = time.time()
+        train_dir = os.path.join(work, "train_pickles")
+        make_train_split(train_dir, spec)
+        from frustum_convnet_tpu_torch.engine import train as trainer
+
+        train_ds, _ = trainer.make_datasets(flagship_cfg(train_dir))
+        print(f"[data] synthetic labeled split of {len(train_ds)} train and 256 "
+              f"val frustums in {time.time() - t0:.1f}s")
+        # 8. one train step, card against CPU
+        phase_train_step(spec, device, seeded_model(spec), train_ds)
+        # 9. the trainer, through its CLI entry point
+        train = phase_trainer(spec, device, work, train_dir)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    print(json.dumps({"kernels": [{
-        "name": "group_depth_point_multi",
-        "route": "cuda",
-        "source": select_cuda.KERNEL_SOURCE,
-        "replaces": select_cuda.REPLACES,
-        "launches": launches,
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-    }]}))
+    records = []
+    for name, launches, numbers in (
+            ("group_depth_point_multi", train["launches"], kernel),
+            ("group_depth_point", prof_launches["group_depth_point"],
+             modes["group_depth_point"]),
+            ("query_depth_point", prof_launches["query_depth_point"],
+             modes["query_depth_point"])):
+        records.append({"name": name, "route": "cuda",
+                        "source": select_cuda.KERNEL_SOURCE,
+                        "replaces": select_cuda.REPLACES[name],
+                        "launches": launches, **numbers})
+    print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

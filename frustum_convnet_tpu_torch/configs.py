@@ -5,9 +5,11 @@ The key set, yaml merge, CLI overrides and the config -> ``DetModelSpec``
 registry are the JAX package's own (``frustum_convnet_tpu.configs`` and
 ``frustum_convnet_tpu.models.registry.get_model_spec``, both jax-free),
 re-exported here. What the port adds is the counterpart of ``frustum_convnet_tpu/models/registry.py:27-51``:
-``cfg.TPU.{INFER,TRUNK}_DTYPE`` and ``cfg.TPU.INFER_POINTS_DTYPE`` resolved to
-torch dtypes. The port computes in float32 only so far; a half-precision
-compute dtype raises instead of silently running float32.
+``cfg.TPU.{COMPUTE,INFER,TRUNK}_DTYPE`` and ``cfg.TPU.INFER_POINTS_DTYPE``
+resolved to torch dtypes. The port computes in float32 only so far; a
+half-precision compute dtype raises instead of silently running float32, and
+so does every training variant that is not ported yet
+(:func:`check_train_supported`).
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ __all__ = [
     "merge_cfg_from_file",
     "merge_cfg_from_list",
     "get_model_spec",
+    "get_compute_dtype",
     "get_infer_dtype",
     "get_trunk_dtype",
     "get_points_upload_dtype",
+    "check_train_supported",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -42,6 +46,11 @@ def _compute_dtype(name: str, key: str) -> torch.dtype:
             f"{key}={name!r}: the torch port computes in float32 only; "
             "half-precision compute is not ported yet")
     return torch.float32
+
+
+def get_compute_dtype(cfg) -> torch.dtype:
+    """``cfg.TPU.COMPUTE_DTYPE``, the training compute dtype (float32 only)."""
+    return _compute_dtype(cfg.TPU.COMPUTE_DTYPE, "TPU.COMPUTE_DTYPE")
 
 
 def get_infer_dtype(cfg) -> torch.dtype:
@@ -64,3 +73,20 @@ def get_points_upload_dtype(cfg) -> torch.dtype:
         raise ValueError(
             f"TPU.INFER_POINTS_DTYPE={name!r}: expected float16 or float32")
     return _DTYPES[name]
+
+
+def check_train_supported(cfg) -> None:
+    """Raise on the training variants the port does not have yet: ghost
+    BatchNorm, analytic BatchNorm statistics, rematerialized PointNet MLPs
+    and half-precision compute."""
+    get_compute_dtype(cfg)
+    get_trunk_dtype(cfg)
+    for key, on in (("TPU.BN_GROUP_SIZE", cfg.TPU.BN_GROUP_SIZE > 0),
+                    ("TPU.FAST_BN", cfg.TPU.FAST_BN),
+                    ("TPU.FAST_BN_FIRST", cfg.TPU.FAST_BN_FIRST),
+                    ("TPU.REMAT_POINTNET", cfg.TPU.REMAT_POINTNET)):
+        if on:
+            raise NotImplementedError(
+                f"{key} is set: the torch port trains with global-batch "
+                "BatchNorm and no rematerialization only; this variant is "
+                "not ported yet")

@@ -1,4 +1,4 @@
-"""FrustumConvNet in PyTorch, eval mode: multi-scale PointNet + 1D FCN + heads.
+"""FrustumConvNet in PyTorch: multi-scale PointNet + 1D FCN + heads.
 
 Counterpart of ``frustum_convnet_tpu/models/net.py`` (``FrustumConvNet``,
 ``PointNetScale``, ``DenseBNReLU``, ``ConvBNReLU``, ``DeConvBNReLU``,
@@ -13,8 +13,20 @@ reference ``.pth`` loads with ``load_state_dict(strict=True)``:
 * ``cls_out`` and ``reg_out``: (O, C, 1) heads with bias.
 
 The public tensors keep the JAX layout: points (B, N, C), refs (B, M_i, 3),
-outputs (B, L, 2) and (B, L, R). Only the eval-mode forward is ported:
-BatchNorm normalizes with its running statistics.
+outputs (B, L, 2) and (B, L, R). The model follows ``module.train()`` and
+``.eval()`` as the JAX model follows its ``train`` argument:
+
+* eval: BatchNorm normalizes with its running statistics, in the JAX
+  package's operation order, and the slot pool is a plain max;
+* train: BatchNorm normalizes with the biased batch variance and updates
+  the running variance with the Bessel-corrected one over
+  ``n = numel // C`` values, momentum 0.1 (flax's 0.9): ``TorchBN``,
+  ``net.py:155-195``, written out rather than ``F.batch_norm`` (see
+  ``_bn``). The slot pool routes the gradient to the first tied slot
+  (``slot_max_pool``, ``net.py:109-131``).
+
+GhostBN, FAST_BN, REMAT_POINTNET and half precision are not ported
+(``configs.check_train_supported`` raises on them).
 """
 
 from __future__ import annotations
@@ -26,18 +38,50 @@ import torch.nn.functional as F
 from torch import nn
 
 from frustum_convnet_tpu.models.spec import DetModelSpec
-from frustum_convnet_tpu_torch.ops.select_cuda import group_depth_point_multi_auto
+from frustum_convnet_tpu_torch.ops.select_cuda import (group_depth_point_auto,
+                                                       group_depth_point_multi_auto)
 
 
-def _bn_eval(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d, dim: int):
-    """Eval BatchNorm over channel axis ``dim`` with the JAX package's
-    operation order (``TorchBN``, ``net.py:194-195``):
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``."""
+def _bn(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d, dim: int):
+    """BatchNorm over channel axis ``dim`` (1 or -1), in ``bn``'s mode, with
+    the JAX package's operation order (``TorchBN``, ``net.py:178-195``):
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+
+    Eval normalizes with the running statistics. Train normalizes with the
+    batch mean and biased variance (``torch.var_mean``) and updates the
+    running statistics in place: ``r = (1 - momentum) * r + momentum * s``,
+    with the variance Bessel-corrected over ``n = numel // C`` values. The
+    CPU's fused ``F.batch_norm`` backward loses up to ~10% of a float32
+    gradient leaf at flagship width against float64; this form stays
+    within ~1e-3.
+    """
     shape = [1] * x.dim()
     shape[dim] = -1
-    inv = torch.reciprocal(torch.sqrt(bn.running_var + bn.eps)) * bn.weight
-    return ((x - bn.running_mean.view(shape)) * inv.view(shape)
-            + bn.bias.view(shape))
+    if bn.training:
+        axes = [d for d in range(x.dim()) if d != dim % x.dim()]
+        var, mean = torch.var_mean(x, dim=axes, correction=0)
+        with torch.no_grad():
+            n = x.numel() // x.shape[dim]
+            m = bn.momentum
+            bn.running_mean.mul_(1.0 - m).add_(m * mean)
+            bn.running_var.mul_(1.0 - m).add_(m * (var * (n / max(n - 1, 1))))
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    inv = torch.reciprocal(torch.sqrt(var + bn.eps)) * bn.weight
+    return (x - mean.view(shape)) * inv.view(shape) + bn.bias.view(shape)
+
+
+def slot_max_pool(x: torch.Tensor, train: bool) -> torch.Tensor:
+    """Max over the slot axis, (B, M, K, C) -> (B, M, C). In train mode the
+    gradient goes to the FIRST slot attaining the max (``argmax`` then
+    ``gather``, whose backward scatters to exactly that slot), as the JAX
+    ``slot_max_pool`` and the reference's ``Tensor.max(dim)`` route it;
+    ``amax`` would split it across tied slots, and the first-hit fill makes
+    ties common in sparse sections."""
+    if train:
+        first = torch.argmax(x, dim=2, keepdim=True)
+        return torch.gather(x, 2, first).squeeze(2)
+    return x.amax(dim=2)
 
 
 class DenseBNReLU(nn.Sequential):
@@ -51,7 +95,7 @@ class DenseBNReLU(nn.Sequential):
     def forward(self, x):
         conv, bn = self[0], self[1]
         y = F.linear(x, conv.weight.view(conv.out_channels, conv.in_channels))
-        return F.relu(_bn_eval(y, bn, -1))
+        return F.relu(_bn(y, bn, -1))
 
 
 class ConvBNReLU(nn.Sequential):
@@ -62,7 +106,7 @@ class ConvBNReLU(nn.Sequential):
                          nn.BatchNorm1d(cout, eps=1e-5))
 
     def forward(self, x):
-        return F.relu(_bn_eval(self[0](x), self[1], 1))
+        return F.relu(_bn(self[0](x), self[1], 1))
 
 
 class DeConvBNReLU(nn.Sequential):
@@ -73,29 +117,38 @@ class DeConvBNReLU(nn.Sequential):
                          nn.BatchNorm1d(cout, eps=1e-5))
 
     def forward(self, x):
-        return F.relu(_bn_eval(self[0](x), self[1], 1))
+        return F.relu(_bn(self[0](x), self[1], 1))
 
 
 class PointNetScale(nn.Module):
-    """One grouping scale's shared MLP, empty-section mask and slot max-pool.
+    """One grouping scale: depth-window grouping -> shared MLP -> slot pool.
 
-    The zero mask for sections with no hit comes after the MLP and before
-    the pool (``net.py:438-440``); the eval pool is a plain max over slots
-    (``net.py:131``).
+    ``forward(points, ref, grouped=None)``: with ``grouped=None`` the scale
+    groups for itself (``net.py:428-430``): ``points`` or its xyz, by
+    ``use_feature``, through ``group_depth_point_auto`` with this scale's
+    ``dist`` and ``nsample``. ``FrustumConvNet`` passes the (grouped, cnt)
+    of its one multi-scale launch instead. The zero mask for sections with
+    no hit comes after the MLP and before the pool (``net.py:438-440``), so
+    their index-0 duplicates still enter the BatchNorm statistics.
     """
 
-    def __init__(self, cin: int, mlp):
+    def __init__(self, cin: int, mlp, dist: float, nsample: int,
+                 use_feature: bool):
         super().__init__()
+        self.dist, self.nsample, self.use_feature = dist, nsample, use_feature
         for j, width in enumerate(mlp):
             self.add_module(f"conv{j + 1}", DenseBNReLU(cin, width))
             cin = width
 
-    def forward(self, grouped, cnt):
-        g = grouped
+    def forward(self, points, ref, grouped=None):
+        if grouped is None:
+            feats = points if self.use_feature else points[..., :3].contiguous()
+            grouped = group_depth_point_auto(feats, ref, self.dist, self.nsample)
+        g, cnt = grouped
         for layer in self.children():
             g = layer(g)
         g = g.masked_fill((cnt == 0)[..., None, None], 0.0)
-        return g.amax(dim=2)  # (B, M, mlp[-1])
+        return slot_max_pool(g, self.training)  # (B, M, mlp[-1])
 
 
 class FrustumConvNet(nn.Module):
@@ -107,8 +160,10 @@ class FrustumConvNet(nn.Module):
         pn_in = 3 + (s.extra_feat_dim if s.use_extra_feature else 0)
         self.feat_net = nn.Module()
         for i in range(s.num_scales):
-            self.feat_net.add_module(f"pointnet{i + 1}",
-                                     PointNetScale(pn_in, s.mlps[i]))
+            self.feat_net.add_module(
+                f"pointnet{i + 1}",
+                PointNetScale(pn_in, s.mlps[i], s.height_half[i],
+                              s.nsamples[i], s.use_extra_feature))
         scale_ch = [m[-1] + s.num_vec for m in s.mlps]
         ch = s.block_channels
         self.conv_net = nn.Module()
@@ -162,8 +217,9 @@ class FrustumConvNet(nn.Module):
             feats, list(refs), list(s.height_half), list(s.nsamples))
 
         scale_feats = []  # channels-first (B, C_i + num_vec, M_i)
-        for i, (grouped, cnt) in enumerate(groups):
-            f = getattr(self.feat_net, f"pointnet{i + 1}")(grouped, cnt)
+        for i, grouped in enumerate(groups):
+            f = getattr(self.feat_net, f"pointnet{i + 1}")(points, refs[i],
+                                                            grouped)
             oh = one_hot.to(f.dtype)[:, None, :].expand(-1, f.shape[1], -1)
             scale_feats.append(torch.cat([f, oh], dim=-1).transpose(1, 2))
 

@@ -65,14 +65,21 @@ def group_points(points: torch.Tensor, ref: torch.Tensor, idx: torch.Tensor):
     return torch.cat([centered_xyz, grouped[..., 3:]], dim=-1)
 
 
+def group_depth_point(points: torch.Tensor, ref: torch.Tensor, dis_z: float,
+                      nsample: int):
+    """One grouping scale: query + gather + center-subtract.
+
+    points (B, N, C), ref (B, M, 3) -> grouped (B, M, K, C), cnt (B, M).
+    """
+    idx, cnt = query_depth_point(points[..., 2], ref[..., 2], dis_z, nsample)
+    return group_points(points, ref, idx), cnt
+
+
 def group_depth_point_multi(points: torch.Tensor, refs, dis_zs, nsamples):
-    """Every grouping scale, one query + gather per scale.
+    """Every grouping scale, one :func:`group_depth_point` per scale.
 
     points (B, N, C); refs [(B, M_i, 3)]; per-scale ``dis_zs[i]`` and
     ``nsamples[i]``. Returns ``[(grouped (B, M_i, K_i, C), cnt (B, M_i))]``.
     """
-    outs = []
-    for ref, d, k in zip(refs, dis_zs, nsamples):
-        idx, cnt = query_depth_point(points[..., 2], ref[..., 2], d, k)
-        outs.append((group_points(points, ref, idx), cnt))
-    return outs
+    return [group_depth_point(points, ref, d, k)
+            for ref, d, k in zip(refs, dis_zs, nsamples)]

@@ -1,7 +1,9 @@
-"""The CUDA grouping kernel against its plain PyTorch version, on the card.
+"""The CUDA grouping kernels against their plain PyTorch versions, on the card.
 
-Bit for bit (grouped and cnt) on every edge case of
-``tests/test_select_pallas.py`` and at the flagship shapes. This file
+Bit for bit (grouped, idx and cnt) on every edge case of
+``tests/test_select_pallas.py`` and at the flagship shapes, for the three
+modes: every scale in one launch (kernel 1), one scale (kernel 2) and the
+select alone (kernel 3). This file
 imports no jax, so on a machine with the card it runs alone:
 
     python -m pytest --noconftest -q tests/test_torch_select_cuda.py
@@ -16,7 +18,9 @@ import torch
 from frustum_convnet_tpu_torch.configs import (get_default_cfg, get_model_spec,
                                                merge_cfg_from_file)
 from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
-from frustum_convnet_tpu_torch.ops.query_depth_point import group_depth_point_multi
+from frustum_convnet_tpu_torch.ops.query_depth_point import (group_depth_point,
+                                                              group_depth_point_multi,
+                                                              query_depth_point)
 
 torch.set_num_threads(1)
 
@@ -50,6 +54,47 @@ def test_kernel_matches_plain(cuda, name):
     _check(CASES[name], cuda)
 
 
+def _check_single(case, device):
+    """Kernels 2 and 3 per scale against their plain versions; kernel 2
+    also against kernel 1's output for the scale."""
+    pts, refs, dzs, ks = case
+    t_pts = torch.from_numpy(pts).to(device)
+    multi = select_cuda.group_depth_point_multi_cuda(
+        t_pts, [torch.from_numpy(r).to(device) for r in refs], dzs, ks)
+    z_points = t_pts[..., 2].contiguous()
+    for ref, d, k, (gm, cm) in zip(refs, dzs, ks, multi):
+        t_ref = torch.from_numpy(ref).to(device)
+        g, c = select_cuda.group_depth_point_cuda(t_pts, t_ref, d, k)
+        g0, c0 = group_depth_point(t_pts, t_ref, d, k)
+        z_ref = t_ref[..., 2].contiguous()
+        idx, cnt = select_cuda.query_depth_point_cuda(z_points, z_ref, d, k)
+        idx0, cnt0 = query_depth_point(z_points, z_ref, d, k)
+        torch.cuda.synchronize()
+        assert g.shape == g0.shape and idx.shape == idx0.shape
+        assert idx.dtype == torch.int32 and cnt.dtype == torch.int32
+        assert torch.equal(g, g0) and torch.equal(c, c0)
+        assert torch.equal(g, gm) and torch.equal(c, cm)
+        assert torch.equal(idx, idx0) and torch.equal(cnt, cnt0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_single_scale_and_select_kernels_match_plain(cuda, name):
+    _check_single(CASES[name], cuda)
+
+
+@pytest.mark.cuda
+def test_single_scale_and_select_kernels_flagship_shapes(cuda):
+    cfg = get_default_cfg()
+    merge_cfg_from_file("cfgs/det_sample.yaml", cfg)
+    spec = get_model_spec(cfg)
+    counters = (select_cuda.group_depth_point_cuda,
+                select_cuda.query_depth_point_cuda)
+    before = [c.launches for c in counters]
+    _check_single(grouping_cases.flagship_case(spec, batch=32), cuda)
+    assert [c.launches for c in counters] == [b + 4 for b in before]
+
+
 @pytest.mark.cuda
 def test_kernel_flagship_shapes(cuda):
     cfg = get_default_cfg()
@@ -65,11 +110,17 @@ def test_kernel_flagship_shapes(cuda):
 @pytest.mark.cuda
 def test_auto_dispatch_launches_kernel_for_cuda_tensors(cuda):
     pts, refs, dzs, ks = CASES["multi_scale_small"]
-    before = select_cuda.group_depth_point_multi_cuda.launches
-    select_cuda.group_depth_point_multi_auto(
-        torch.from_numpy(pts).to(cuda),
-        [torch.from_numpy(r).to(cuda) for r in refs], dzs, ks)
-    assert select_cuda.group_depth_point_multi_cuda.launches == before + 1
+    counters = (select_cuda.group_depth_point_multi_cuda,
+                select_cuda.group_depth_point_cuda,
+                select_cuda.query_depth_point_cuda)
+    before = [c.launches for c in counters]
+    t_pts = torch.from_numpy(pts).to(cuda)
+    t_refs = [torch.from_numpy(r).to(cuda) for r in refs]
+    select_cuda.group_depth_point_multi_auto(t_pts, t_refs, dzs, ks)
+    select_cuda.group_depth_point_auto(t_pts, t_refs[0], dzs[0], ks[0])
+    select_cuda.query_depth_point_auto(t_pts[..., 2].contiguous(),
+                                       t_refs[0][..., 2].contiguous(), dzs[0], ks[0])
+    assert [c.launches for c in counters] == [b + 1 for b in before]
 
 
 @pytest.mark.cuda
@@ -101,3 +152,13 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         select_cuda.group_depth_point_multi_cuda(
             torch.from_numpy(np.ascontiguousarray(pts[:, ::2])).to(cuda),
             t_refs, dzs, [1024, 8])
+    t_pts = torch.from_numpy(pts).to(cuda)
+    with pytest.raises(ValueError, match="grad"):
+        select_cuda.group_depth_point_cuda(t_pts.clone().requires_grad_(),
+                                           t_refs[0], dzs[0], ks[0])
+    z_ref = t_refs[0][..., 2].contiguous()
+    with pytest.raises(ValueError, match="grad"):
+        select_cuda.query_depth_point_cuda(
+            t_pts[..., 2].contiguous().requires_grad_(), z_ref, dzs[0], ks[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        select_cuda.query_depth_point_cuda(t_pts[..., 2], z_ref, dzs[0], ks[0])

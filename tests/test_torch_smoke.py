@@ -104,3 +104,35 @@ def test_smoke_foreground_labels_are_the_label_rule():
         np.testing.assert_array_equal(ours, want)
         fallbacks += not points_in_box3d(ladder, center, lwh * 0.5, ry).any()
     assert fallbacks >= 5
+
+
+def test_labeled_split_reads_through_the_trainer():
+    """``make_train_split`` writes the 11-stream labeled layout: through the
+    trainer's provider (rotated to the frustum center, no augmentation on
+    val) the car's points lie in the labeled box, the box's corners, heading
+    and size agree, and every frustum has a foreground section."""
+    import tempfile
+
+    from frustum_convnet_tpu.core import geometry_np as gnp
+    from frustum_convnet_tpu_torch.engine import train as trainer
+
+    spec = driver.configs.get_model_spec(chip_smoke.flagship_cfg())
+    with tempfile.TemporaryDirectory() as work:
+        chip_smoke.make_train_split(work, spec, num_train=4, num_val=6)
+        train_ds, val_ds = trainer.make_datasets(chip_smoke.flagship_cfg(work))
+        assert (len(train_ds), len(val_ds)) == (4, 6)
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            raw = {k: val_ds.data[k][i] for k in ("box3d", "heading", "size")}
+            np.testing.assert_allclose(
+                raw["box3d"], gnp.box3d_corners((raw["box3d"][0] + raw["box3d"][6]) / 2,
+                                                raw["size"], raw["heading"]), atol=1e-9)
+            item = val_ds.__getitem__(i, rng)
+            car = item["seg_label"] == 1
+            assert car.sum() > 10
+            inside = gnp.points_in_box3d(item["point_cloud"], item["box3d_center"],
+                                         item["box3d_size"], item["box3d_heading"],
+                                         eps=1e-4)
+            assert inside[car].all() and not inside[~car].all()
+            labels = item["cls_label"]
+            assert (labels == 1).any() and labels.shape == (spec.num_out,)
