@@ -8,9 +8,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. device: a CUDA card must be visible; prints its name and power limit;
 2. build: compiles ``frustum_convnet_tpu_torch/csrc/group_depth_point.cu``;
 3. kernel: the CUDA grouping kernel against its plain PyTorch version on the
-   card, bit for bit (grouped and cnt), at the flagship shapes (B=256) and
-   on every edge case of ``tests/test_select_pallas.py``; both timed with
-   CUDA events at B=256, in turns (plain, kernel, kernel, plain);
+   card, bit for bit (grouped and cnt), at the flagship shapes (B=32, 64 and
+   256: the trainer's batch, the serving group's and the timed one) and on
+   every edge case of ``ops/grouping_cases``; timed with CUDA events at
+   B=32, 64 and 256 beside its bound (``tools/time_grouping.kernel_bound``),
+   and at B=256 in turns with the plain version (plain, kernel, kernel,
+   plain);
 4. model: the flagship forward at batch 8 of the served split, on the card
    against the port on the CPU with the same seeded weights, atol/rtol 1e-4
    (TF32 off). The weights are the port's seeded init with perturbed
@@ -19,13 +22,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 5. driver: ``frustum_convnet_tpu_torch.engine.test.main`` on
    ``cfgs/det_sample.yaml`` at full width over a synthetic KITTI val split
    of 4300 frustums (TEST.BATCH_SIZE 32, TPU.INFER_GROUP 2, weights from a
-   ``.pth``); checks the result files, the detections, the evaluator's AP
+   ``.pth``); requires the native NMS and evaluator (``make -C native``) to
+   have built, checks the result files, the detections, the evaluator's AP
    and that the main path launched the kernel; prints the frustums/s;
 6. modes: the single-scale grouping (kernel 2) and the select alone
    (kernel 3) against their plain versions on the card, bit for bit
-   (grouped, idx and cnt), at the flagship shapes (B=256) and on every edge
-   case of ``tests/test_select_pallas.py``, kernel 2 also against kernel 1
-   per scale; both timed with their plain versions at B=256 on scales 1
+   (grouped, idx and cnt), at the flagship shapes (B=32, the profiler's
+   batch, and B=256) and on every edge case of
+   ``tests/test_select_pallas.py``, kernel 2 also against kernel 1 per
+   scale; both timed with their plain versions at B=256 on scales 1
    (M=280, K=32) and 4 (M=35, K=128), in turns (plain, kernel, kernel,
    plain);
 7. profiler: ``frustum_convnet_tpu_torch.tools.profile_stages.main`` at
@@ -54,8 +59,14 @@ any other split.
 
 Each kernel's ``launches`` in the kernels record is counted over one main
 path, with the counts set to 0 just before it: kernel 1 over the trainer's
-run (phase 9), kernels 2 and 3 over the profiler's (phase 7). Launches that
-compare a kernel with its plain version are not counted.
+run (phase 9), kernels 2 and 3 over the profiler's (phase 7).
+``main_path_launches`` adds each kernel's launches in the serving and
+training runs (phases 5 and 9), where only kernel 1 runs. Launches that
+compare a kernel with its plain version are not counted. ``bound_ms`` is
+the least time the card could take for the timed call (its bytes over the
+HBM rate or its float32 operations over the float32 instruction rate,
+whichever is larger); ``library_ms`` is null: no single PyTorch call computes this select.
+The run fails if any module of the JAX package (or jax) was imported.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -95,25 +106,14 @@ CORNER_SIGNS = np.array([[1, 1, -1, -1, 1, 1, -1, -1],
                          [1, -1, -1, 1, 1, -1, -1, 1]], np.float64).T
 
 
-def _cuda_time_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream."""
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _in_turns(kernel, plain, kernel_iters: int = 50, plain_iters: int = 10):
     """(kernel ms, plain ms): timed plain, kernel, kernel, plain."""
-    p1 = _cuda_time_ms(plain, plain_iters)
-    k1 = _cuda_time_ms(kernel, kernel_iters)
-    k2 = _cuda_time_ms(kernel, kernel_iters)
-    p2 = _cuda_time_ms(plain, plain_iters)
+    from frustum_convnet_tpu_torch.tools.time_grouping import cuda_time_ms
+
+    p1 = cuda_time_ms(plain, plain_iters)
+    k1 = cuda_time_ms(kernel, kernel_iters)
+    k2 = cuda_time_ms(kernel, kernel_iters)
+    p2 = cuda_time_ms(plain, plain_iters)
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
@@ -128,12 +128,18 @@ def flagship_cfg(data_root: str | None = None):
 
 
 def phase_kernel(spec, device) -> dict:
-    """Kernel vs plain version, bit for bit; timed at flagship B=256."""
+    """Kernel vs plain version, bit for bit, on the edge cases and at the
+    flagship B=32, 64 and 256 (the tile count a row gets depends on the
+    batch); timed at those three batches beside its bound, and against the
+    plain version at B=256."""
     from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
     from frustum_convnet_tpu_torch.ops.query_depth_point import group_depth_point_multi
+    from frustum_convnet_tpu_torch.tools.time_grouping import cuda_time_ms, kernel_bound
 
     cases = dict(grouping_cases.edge_cases())
-    cases["flagship_b256"] = grouping_cases.flagship_case(spec, batch=256)
+    batches = (32, 64, 256)
+    for batch in batches:
+        cases[f"flagship_b{batch}"] = grouping_cases.flagship_case(spec, batch=batch)
     max_err = 0.0
     for name, (pts, refs, dzs, ks) in cases.items():
         t_pts = torch.from_numpy(pts).to(device)
@@ -146,31 +152,44 @@ def phase_kernel(spec, device) -> dict:
                 raise AssertionError(f"kernel != plain version on case {name}")
             max_err = max(max_err, (g - g0).abs().max().item())
     print(f"[kernel] bit-identical to the plain version on {len(cases)} cases "
-          f"(flagship B=256 and {len(cases) - 1} edge cases)")
+          f"(flagship B=32, 64, 256 and {len(cases) - 3} edge cases)")
 
-    pts, refs, dzs, ks = cases["flagship_b256"]
-    t_pts = torch.from_numpy(pts).to(device)
-    t_refs = [torch.from_numpy(r).to(device) for r in refs]
-    ms, plain_ms, (k1, k2, p1, p2) = _in_turns(
-        lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks),
-        lambda: group_depth_point_multi(t_pts, t_refs, dzs, ks))
-    out_bytes = 256 * sum(m * k * 3 * 4 for m, k in zip(spec.num_refs, spec.nsamples))
-    print(f"[kernel] flagship B=256: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), "
-          f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); output "
-          f"{out_bytes / 1e6:.1f} MB -> {out_bytes / ms / 1e6:.1f} GB/s")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    for batch in batches:
+        pts, refs, dzs, ks = cases[f"flagship_b{batch}"]
+        t_pts = torch.from_numpy(pts).to(device)
+        t_refs = [torch.from_numpy(r).to(device) for r in refs]
+        kernel = lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks)
+        bound = kernel_bound("group_depth_point_multi", t_pts, t_refs, dzs, ks)
+        if batch == 256:
+            ms, plain_ms, (k1, k2, p1, p2) = _in_turns(
+                kernel, lambda: group_depth_point_multi(t_pts, t_refs, dzs, ks))
+            timed = (f"kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+                     f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f})")
+            record = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+        else:
+            ms = cuda_time_ms(kernel, 200)
+            timed = f"kernel {ms:.4f} ms"
+        print(f"[kernel] flagship B={batch}: {timed}; bound {bound['bound_ms']:.4f} "
+              f"ms ({bound['bound_by']}: {bound['bytes'] / 1e6:.2f} MB, "
+              f"{bound['operations'] / 1e6:.1f} M float32 ops), share "
+              f"{bound['bound_ms'] / ms:.1%}")
+    return record
 
 
 def phase_modes(spec, device) -> dict:
     """Kernels 2 (one scale) and 3 (select only) against their plain
-    versions, bit for bit, and kernel 2 against kernel 1 per scale; timed at
+    versions, bit for bit, and kernel 2 against kernel 1 per scale, on the
+    edge cases and at the flagship B=32 and 256; timed at
     B=256 on scales 1 and 4. Returns their kernels-record numbers (times of
     scale 1, M=280, K=32)."""
     from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
     from frustum_convnet_tpu_torch.ops import query_depth_point as qdp
+    from frustum_convnet_tpu_torch.tools.time_grouping import kernel_bound
 
     cases = dict(grouping_cases.edge_cases())
-    cases["flagship_b256"] = grouping_cases.flagship_case(spec, batch=256)
+    for batch in (32, 256):  # the profiler's batch, and the timed one
+        cases[f"flagship_b{batch}"] = grouping_cases.flagship_case(spec, batch=batch)
     err = {"group_depth_point": 0.0, "query_depth_point": 0.0}
     for name, (pts, refs, dzs, ks) in cases.items():
         t_pts = torch.from_numpy(pts).to(device)
@@ -197,8 +216,8 @@ def phase_modes(spec, device) -> dict:
             err["query_depth_point"] = max(err["query_depth_point"],
                                            (idx - idx0).abs().max().item())
     print(f"[modes] kernels 2 and 3 bit-identical to their plain versions (and "
-          f"kernel 2 to kernel 1) on {len(cases)} cases (flagship B=256 and "
-          f"{len(cases) - 1} edge cases)")
+          f"kernel 2 to kernel 1) on {len(cases)} cases (flagship B=32, 256 and "
+          f"{len(cases) - 2} edge cases)")
 
     pts, refs, dzs, ks = cases["flagship_b256"]
     t_pts = torch.from_numpy(pts).to(device)
@@ -218,12 +237,15 @@ def phase_modes(spec, device) -> dict:
                  lambda: qdp.query_depth_point(z_points, z_ref, d, k),
                  256 * m * k * 4)):
             ms, plain_ms, (k1, k2, p1, p2) = _in_turns(kernel, plain)
+            bound = kernel_bound(name, t_pts, [t_ref], [d], [k])
             print(f"[modes] {name} scale {i + 1} (M={m}, K={k}) B=256: kernel "
                   f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                   f"({p1:.4f}, {p2:.4f}); output {out_bytes / 1e6:.2f} MB -> "
-                  f"{out_bytes / ms / 1e6:.1f} GB/s")
+                  f"{out_bytes / ms / 1e6:.1f} GB/s; bound {bound['bound_ms']:.4f} "
+                  f"ms ({bound['bound_by']}), share {bound['bound_ms'] / ms:.1%}")
             if i == 0:
-                out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms}
+                out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
     return out
 
 
@@ -235,14 +257,22 @@ def _counters():
             "query_depth_point": select_cuda.query_depth_point_cuda}
 
 
+def _reset_counts() -> None:
+    for c in _counters().values():
+        c.launches = 0
+
+
+def _counts() -> dict:
+    return {name: c.launches for name, c in _counters().items()}
+
+
 def phase_profiler() -> dict:
     """The stage profiler at batch 32; returns each kernel's launches in it."""
     from frustum_convnet_tpu_torch.tools import profile_stages
 
-    for c in _counters().values():
-        c.launches = 0
+    _reset_counts()
     profile_stages.main(["--batch", "32"])
-    launches = {name: c.launches for name, c in _counters().items()}
+    launches = _counts()
     if min(launches.values()) <= 0:
         raise AssertionError(f"the profiler did not launch every kernel: {launches}")
     print(f"[profiler] kernel launches: {launches}")
@@ -503,19 +533,22 @@ def phase_model(spec, device, model, dataset) -> None:
               f"{(g - c).abs().max().item():.3e} (atol/rtol 1e-4)")
 
 
-def phase_driver(model, split: dict, work: str) -> int:
-    """The port's CLI entry point on the card over ``split``; returns the
-    kernel launches of that run."""
+def phase_driver(model, split: dict, work: str) -> dict:
+    """The port's CLI entry point on the card over ``split``; returns each
+    kernel's launches in that run."""
     import math
 
     from frustum_convnet_tpu_torch.engine import checkpoints
     from frustum_convnet_tpu_torch.engine import test as driver
-    from frustum_convnet_tpu_torch.ops import select_cuda
+    from frustum_convnet_tpu_torch.ops import native
 
     weights = os.path.join(work, "smoke_init.pth")
     checkpoints.save_checkpoint(weights, model)
+    if not native.native_available():
+        raise AssertionError("the native NMS and evaluator did not build "
+                             "(make -C native): the driver would run numpy")
 
-    select_cuda.group_depth_point_multi_cuda.launches = 0
+    _reset_counts()
     out = driver.main([
         "--cfg", os.path.join(ROOT, "cfgs", "det_sample.yaml"),
         "--device", "cuda", "--gt_dir", split["gt_dir"],
@@ -524,7 +557,8 @@ def phase_driver(model, split: dict, work: str) -> int:
         "OUTPUT_DIR", os.path.join(work, "output"),
         "TEST.BATCH_SIZE", "32", "TPU.INFER_GROUP", "2",
         "TEST.WEIGHTS", weights])
-    launches = select_cuda.group_depth_point_multi_cuda.launches
+    counts = _counts()
+    launches = counts["group_depth_point_multi"]
 
     stats = out["stats"]
     n_batches = math.ceil(stats["frustums"] / 32)
@@ -565,7 +599,7 @@ def phase_driver(model, split: dict, work: str) -> int:
     print(f"[driver] car AP 2D/BEV/3D (easy, moderate, hard): "
           f"{ap['car']['detection']} {ap['car']['detection_ground']} "
           f"{ap['car']['detection_3d']}")
-    return launches
+    return counts
 
 
 def labeled_batch(dataset, indices, num_scales: int) -> dict:
@@ -676,7 +710,6 @@ def phase_trainer(spec, device, work: str, pickle_dir: str) -> dict:
     from frustum_convnet_tpu_torch.engine import checkpoints
     from frustum_convnet_tpu_torch.engine import train as trainer
     from frustum_convnet_tpu_torch.models.net import FrustumConvNet
-    from frustum_convnet_tpu_torch.ops import select_cuda
 
     out_dir = os.path.join(work, "train_output")
     args = ["--cfg", os.path.join(ROOT, "cfgs", "det_sample.yaml"),
@@ -684,10 +717,10 @@ def phase_trainer(spec, device, work: str, pickle_dir: str) -> dict:
             "OUTPUT_DIR", out_dir, "TRAIN.BATCH_SIZE", "32",
             "TEST.BATCH_SIZE", "32", "disp", "8", "TPU.METRIC_INTERVAL", "-1",
             "USE_TFBOARD", "False"]
-    kernel = select_cuda.group_depth_point_multi_cuda
-    kernel.launches = 0
+    _reset_counts()
     res = trainer.main(args + ["TRAIN.MAX_EPOCH", "2"])
-    launches = kernel.launches
+    counts = _counts()
+    launches = counts["group_depth_point_multi"]
 
     cfg = flagship_cfg(pickle_dir)
     _, val_ds = trainer.make_datasets(cfg)
@@ -732,7 +765,7 @@ def phase_trainer(spec, device, work: str, pickle_dir: str) -> dict:
     print(f"[trainer] steady epoch (epoch 1): {steady['ms_per_step']:.3f} ms/step, "
           f"{steady['frustums_per_s']:.1f} frustums/s over {steady['seconds']:.3f}s "
           f"(CUDA events); epoch 0 {res['epochs'][0]['ms_per_step']:.3f} ms/step")
-    return {"launches": launches, "steady": steady}
+    return {"counts": counts, "steady": steady}
 
 
 def main() -> int:
@@ -777,8 +810,8 @@ def main() -> int:
         # 4. model on the card against the port on the CPU
         phase_model(spec, device, model, dataset)
         # 5. the serving driver, through its CLI entry point
-        serve_launches = phase_driver(model, split, work)
-        print(f"[driver] kernel 1 launches on the serving path: {serve_launches}")
+        serve_counts = phase_driver(model, split, work)
+        print(f"[driver] kernel launches on the serving path: {serve_counts}")
         # 6. kernels 2 and 3 against their plain versions
         modes = phase_modes(spec, device)
         # 7. the stage profiler, which runs kernels 1, 2 and 3
@@ -797,12 +830,14 @@ def main() -> int:
         # 9. the trainer, through its CLI entry point
         train = phase_trainer(spec, device, work, train_dir)
 
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "optax"))
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                    ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     records = []
     for name, launches, numbers in (
-            ("group_depth_point_multi", train["launches"], kernel),
+            ("group_depth_point_multi", train["counts"]["group_depth_point_multi"],
+             kernel),
             ("group_depth_point", prof_launches["group_depth_point"],
              modes["group_depth_point"]),
             ("query_depth_point", prof_launches["query_depth_point"],
@@ -810,7 +845,8 @@ def main() -> int:
         records.append({"name": name, "route": "cuda",
                         "source": select_cuda.KERNEL_SOURCE,
                         "replaces": select_cuda.REPLACES[name],
-                        "launches": launches, **numbers})
+                        "launches": launches, **numbers, "library_ms": None,
+                        "main_path_launches": serve_counts[name] + train["counts"][name]})
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

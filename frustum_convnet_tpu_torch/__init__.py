@@ -1,13 +1,18 @@
 """frustum_convnet_tpu_torch — the PyTorch/CUDA port of ``frustum_convnet_tpu``.
 
 The JAX package is the reference; this package mirrors its module layout
-where a counterpart exists (``core/{codecs,geometry,iou}``,
-``ops/query_depth_point``, ``models/{net,det,losses}``,
-``parallel/train_step``, ``engine/{train,test,checkpoints}``,
-``tools/profile_stages``) and imports every jax-free shared module of it as
-it is: ``configs/``, ``data/``, ``engine/loader``, ``evaluation/``,
-``models/spec`` with ``models.registry.get_model_spec``, ``ops/native`` and
-``utils/``.
+and imports nothing of it. The modules that needed jax are rewritten in
+PyTorch (``core/{codecs,geometry,iou}``, ``ops/query_depth_point``,
+``models/{net,det,losses}``, ``parallel/train_step``,
+``engine/{train,test,checkpoints}``, ``tools/profile_stages``). The jax-free
+ones are copied under the same relative paths, with only their imports
+pointed at this package: ``configs/{config,attrdict}``, ``core/{geometry_np,
+iou_np,nms}``, ``data/{dataset_info,pickle_io,provider,fixtures,registry}``,
+``engine/loader``, ``evaluation/{kitti_writer,kitti_eval,plots}``,
+``models/{spec,registry}``, ``ops/native`` and ``utils/{logger,tfevents,
+metrics}``. ``ops/native`` builds the repository's host C++ library and
+evaluator (``native/``, ``make -C native`` into ``native/build/``) at first
+use and falls back to numpy where that fails.
 
 The port never imports ``jax``, ``flax`` or ``optax``. Its hand-written
 kernels, the depth-window grouping op in three modes (every scale in one

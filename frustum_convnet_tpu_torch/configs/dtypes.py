@@ -1,10 +1,6 @@
-"""Config entry of the port: the shared config tree, the model spec, and
-torch dtype resolution.
+"""Torch dtype resolution of the port's config: the counterpart of
+``frustum_convnet_tpu/models/registry.py:27-51``.
 
-The key set, yaml merge, CLI overrides and the config -> ``DetModelSpec``
-registry are the JAX package's own (``frustum_convnet_tpu.configs`` and
-``frustum_convnet_tpu.models.registry.get_model_spec``, both jax-free),
-re-exported here. What the port adds is the counterpart of ``frustum_convnet_tpu/models/registry.py:27-51``:
 ``cfg.TPU.{COMPUTE,INFER,TRUNK}_DTYPE`` and ``cfg.TPU.INFER_POINTS_DTYPE``
 resolved to torch dtypes. The port computes in float32 only so far; a
 half-precision compute dtype raises instead of silently running float32, and
@@ -15,24 +11,6 @@ so does every training variant that is not ported yet
 from __future__ import annotations
 
 import torch
-
-from frustum_convnet_tpu.configs import (assert_and_infer_cfg, get_default_cfg,
-                                         merge_cfg_from_file,
-                                         merge_cfg_from_list)
-from frustum_convnet_tpu.models.registry import get_model_spec
-
-__all__ = [
-    "assert_and_infer_cfg",
-    "get_default_cfg",
-    "merge_cfg_from_file",
-    "merge_cfg_from_list",
-    "get_model_spec",
-    "get_compute_dtype",
-    "get_infer_dtype",
-    "get_trunk_dtype",
-    "get_points_upload_dtype",
-    "check_train_supported",
-]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}

@@ -6,7 +6,7 @@ inference over the (val|test) provider, per-frustum foreground selection
 (``TEST.METHOD``: 'nms' keeps every section scored foreground with an argmax
 fallback, 'top' keeps the single best section), decode back to KITTI boxes,
 score = section cls prob + 2D detector prob, 3D rotated NMS at
-``TEST.THRESH`` in the shared writer, and AP from the shared evaluator.
+``TEST.THRESH`` in the KITTI writer, and AP from the KITTI evaluator.
 
 The streaming design is the JAX driver's: G batches flattened into one
 forward, the section ladders rebuilt on the device from 6 floats per frustum,
@@ -29,15 +29,15 @@ from collections import deque
 import numpy as np
 import torch
 
-from frustum_convnet_tpu.data.provider import from_prediction_to_label_format_batch
-from frustum_convnet_tpu.data.registry import get_provider_class
-from frustum_convnet_tpu.engine.loader import BatchLoader
-from frustum_convnet_tpu.evaluation.kitti_writer import write_detection_results
-from frustum_convnet_tpu.utils.logger import get_logger
 from frustum_convnet_tpu_torch import configs
+from frustum_convnet_tpu_torch.data.provider import from_prediction_to_label_format_batch
+from frustum_convnet_tpu_torch.data.registry import get_provider_class
 from frustum_convnet_tpu_torch.engine import checkpoints as ckpt
+from frustum_convnet_tpu_torch.engine.loader import BatchLoader
+from frustum_convnet_tpu_torch.evaluation.kitti_writer import write_detection_results
 from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+from frustum_convnet_tpu_torch.utils.logger import get_logger
 
 INIT_SEED = 3  # the JAX driver's init seed for an evaluation without weights
 
@@ -452,7 +452,7 @@ def main(argv=None):
         zip_path = package_test_results(result_dir)
         logger.info(f"results file saved in {result_dir}; packaged {zip_path}")
     elif not args.no_eval:
-        from frustum_convnet_tpu.evaluation import kitti_eval
+        from frustum_convnet_tpu_torch.evaluation import kitti_eval
         results = kitti_eval.evaluate(args.gt_dir, result_dir,
                                       classes=("car", "pedestrian", "cyclist")
                                       if not cfg.DATA.CAR_ONLY else ("car",))

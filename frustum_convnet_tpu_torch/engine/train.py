@@ -32,18 +32,18 @@ import time
 import numpy as np
 import torch
 
-from frustum_convnet_tpu.data.registry import get_provider_class
-from frustum_convnet_tpu.engine.loader import BatchLoader
-from frustum_convnet_tpu.utils.logger import ScalarWriter, get_logger
-from frustum_convnet_tpu.utils.metrics import TrainingStates
 from frustum_convnet_tpu_torch import configs
+from frustum_convnet_tpu_torch.data.registry import get_provider_class
 from frustum_convnet_tpu_torch.engine import checkpoints as ckpt
+from frustum_convnet_tpu_torch.engine.loader import BatchLoader
 from frustum_convnet_tpu_torch.engine.test import strict_fp32
 from frustum_convnet_tpu_torch.models import det
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
 from frustum_convnet_tpu_torch.parallel.train_step import (
     TrainState, TrainStepConfig, build_eval_step, build_train_step_accum,
     init_accum, make_optimizer, multistep_lr, reset_schedule_count, to_device)
+from frustum_convnet_tpu_torch.utils.logger import ScalarWriter, get_logger
+from frustum_convnet_tpu_torch.utils.metrics import TrainingStates
 
 
 def save_cfg_snapshot(path: str, cfg, spec) -> None:

@@ -15,7 +15,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from frustum_convnet_tpu.models.spec import DetModelSpec
+from frustum_convnet_tpu_torch.models.spec import DetModelSpec
 from frustum_convnet_tpu_torch.core import codecs
 from frustum_convnet_tpu_torch.core.geometry import box3d_corners
 from frustum_convnet_tpu_torch.core.iou import iou_pair_3d

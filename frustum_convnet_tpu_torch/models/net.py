@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from frustum_convnet_tpu.models.spec import DetModelSpec
+from frustum_convnet_tpu_torch.models.spec import DetModelSpec
 from frustum_convnet_tpu_torch.ops.select_cuda import (group_depth_point_auto,
                                                        group_depth_point_multi_auto)
 

@@ -4,7 +4,8 @@
 The edge cases mirror ``tests/test_select_pallas.py`` (single-scale oracle
 shapes, unsorted and duplicated ladders, empty and overflow sections,
 duplicate depths, N not a power of two, multi-scale ladders, K=256 with
-C=6); ``flagship_case`` is the model's own grouping input. Every case is
+C=6), and unaligned section spans and rows (``odd_spans_n201``);
+``flagship_case`` is the model's own grouping input. Every case is
 ``(points (B, N, C) f32, [refs (B, M_i, 3) f32], dis_zs, nsamples)``.
 """
 
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from frustum_convnet_tpu.data.fixtures import make_batch
+from frustum_convnet_tpu_torch.data.fixtures import make_batch
 
 # (b, n, m, dis_z, k) of test_select_pallas.test_matches_oracle
 ORACLE_SHAPES = [
@@ -85,6 +86,14 @@ def edge_cases(seed: int = 3) -> dict:
             for m in (80, 40, 20, 10, 5)]
     cases["k256_c6_sunrgbd"] = (pts, refs, [0.1, 0.2, 0.4, 0.8, 1.6],
                                 [128, 128, 256, 256, 256])
+
+    # spans of K*C = 15 and 21 floats and rows of 603 floats: unaligned
+    # section spans and row starts
+    pts = rng.uniform(0, 30, (3, 201, 3)).astype(np.float32)
+    refs = [np.sort(rng.uniform(0, 30, (3, m, 3)).astype(np.float32), axis=1)
+            for m in (30, 11)]
+    cases["odd_spans_n201"] = (pts, refs, [1.5, 3.0], [5, 7])
+
     return cases
 
 

@@ -22,6 +22,7 @@ backward: the points are inputs of the model, never parameters.
 from __future__ import annotations
 
 import ctypes
+import heapq
 
 import numpy as np
 import torch
@@ -37,9 +38,13 @@ REPLACES = {
     "group_depth_point": "frustum_convnet_tpu/ops/select_pallas.py:290",
     "query_depth_point": "frustum_convnet_tpu/ops/select_pallas.py:241",
 }
-_MAX_SMEM = 227 * 1024  # bytes of dynamic shared memory a Hopper block may opt into
+_MAX_SMEM = 227 * 1024  # bytes of shared memory a Hopper block may opt into
+_STATIC_SMEM = 128  # at least the grouping kernel's static shared memory
+_MAX_WARPS = 8  # warps of a grouping block (kMaxWarps)
+_MAX_REF_PTRS = 16  # ref pointers a grouping launch takes (kMaxRefPtrs)
 
-_meta_cache: dict = {}
+_plans: dict = {}
+_devices: dict = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -47,8 +52,11 @@ def _lib() -> ctypes.CDLL:
     if lib.fcn_group_depth_point_multi.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.fcn_group_depth_point_multi.argtypes = [
-            ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            ptr, ptr, ptr, i32, ptr, ptr, ptr, i32, ptr, ptr, i32, i32, i32,
+            i32, i32, i32, ptr]
         lib.fcn_group_depth_point_multi.restype = i32
+        lib.fcn_group_smem_bytes.argtypes = [i32, i32, i32, i32]
+        lib.fcn_group_smem_bytes.restype = ctypes.c_size_t
         lib.fcn_query_depth_point.argtypes = [
             ptr, ptr, ctypes.c_float, ptr, ptr, i32, i32, i32, i32, i32, ptr]
         lib.fcn_query_depth_point.restype = i32
@@ -63,8 +71,23 @@ def _check_launch(lib, err: int, name: str) -> None:
                            + lib.fcn_cuda_error_string(err).decode())
 
 
-def _check_points(points: torch.Tensor, min_channels: int, name: str) -> None:
-    """Device, dtype, rank, contiguity, no gradient; the grid's batch range."""
+def _device(t: torch.Tensor) -> tuple:
+    """(index, SM count) of ``t``'s card; raises unless it is a Hopper card.
+    Queried once per device."""
+    index = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    if index not in _devices:
+        props = torch.cuda.get_device_properties(index)
+        _devices[index] = ((props.major, props.minor) == (9, 0),
+                           props.multi_processor_count)
+    hopper, sms = _devices[index]
+    if not hopper:
+        raise RuntimeError("the kernel is built for sm_90a (Hopper) only")
+    return index, sms
+
+
+def _check_points(points: torch.Tensor, min_channels: int, name: str) -> tuple:
+    """Device, dtype, rank, contiguity, no gradient; the grid's batch range.
+    Returns the card's (index, SM count)."""
     if points.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {points.device}")
     rank = 3 if min_channels else 2
@@ -81,77 +104,132 @@ def _check_points(points: torch.Tensor, min_channels: int, name: str) -> None:
     if not 1 <= points.shape[0] <= 65535:
         raise ValueError(f"batch {points.shape[0]} outside the grid's y range "
                          "[1, 65535]")
-    if torch.cuda.get_device_capability(points.device) != (9, 0):
-        raise RuntimeError("the kernel is built for sm_90a (Hopper) only")
+    return _device(points)
 
 
-def _device_index(t: torch.Tensor) -> int:
-    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+def num_tiles(batch: int, n_sections: int, sms: int) -> int:
+    """Tiles a batch row's sections are dealt into: 3 when the batch alone
+    gives two blocks an SM (B=256 then fills the card in one wave of six
+    blocks an SM), up to 16 when it does not, never more than the
+    sections."""
+    return max(1, min(n_sections, 16, max(3, -(-2 * sms // batch))))
 
 
-def _section_meta(ms, ks, dis_zs, channels: int, device: torch.device):
-    """Per-section (K_i, M_i, index in scale, grouped prefix, count prefix)
-    int64 rows and float32 windows over the concatenated sections, cached
-    per scale layout and device (they do not depend on the batch size)."""
-    key = (tuple(ms), tuple(ks), tuple(float(d) for d in dis_zs), channels,
-           str(device))
-    if key not in _meta_cache:
-        rows, dz = [], []
-        g_prefix = c_prefix = 0
-        for m, k, d in zip(ms, ks, dis_zs):
-            for i in range(m):
-                rows.append((k, m, i, g_prefix, c_prefix))
-            dz += [np.float32(d)] * m
-            g_prefix += m * k * channels
-            c_prefix += m
-        _meta_cache[key] = (
-            torch.tensor(np.asarray(rows, np.int64), device=device),
-            torch.tensor(np.asarray(dz, np.float32), device=device))
-    return _meta_cache[key]
+def section_table(ms, ks, dis_zs, channels: int, n_tiles: int,
+                  per_scale_refs: bool):
+    """The grouping launch's section table, on the host.
+
+    One row per section of the concatenated scales (seven int64 columns:
+    K_i, M_i, index within the scale, grouped prefix sum_{j<i} M_j*K_j*C,
+    count prefix sum_{j<i} M_j, ref pointer slot, float offset of the
+    center in the slot's batch row), its float32 window,
+    and the tile boundaries: the sections are dealt longest first to the
+    tile with the fewest output bytes so far, so every tile's list starts
+    with its longest sections. With ``per_scale_refs`` scale i's centers are
+    read from ref slot i, else from one concatenated (B, sum M_i, 3) slot 0.
+    """
+    rows, dz = [], []
+    g_prefix = c_prefix = 0
+    for s, (m, k, d) in enumerate(zip(ms, ks, dis_zs)):
+        for i in range(m):
+            slot, col = (s, 3 * i) if per_scale_refs else (0, 3 * (c_prefix + i))
+            rows.append((k, m, i, g_prefix, c_prefix, slot, col))
+            dz.append(d)
+        g_prefix += m * k * channels
+        c_prefix += m
+    loads = [(0, t) for t in range(n_tiles)]
+    tiles = [[] for _ in range(n_tiles)]
+    for e in sorted(range(len(rows)), key=lambda e: -rows[e][0]):  # stable
+        load, t = heapq.heappop(loads)
+        tiles[t].append(e)
+        heapq.heappush(loads, (load + rows[e][0] * channels, t))
+    order = [e for tile in tiles for e in tile]
+    begin = np.cumsum([0] + [len(tile) for tile in tiles]).astype(np.int32)
+    return (np.asarray([rows[e] for e in order], np.int64),
+            np.asarray([dz[e] for e in order], np.float32), begin)
+
+
+def output_views(b: int, ms, ks, c: int) -> list:
+    """Per scale, the (size, stride, offset) of its grouped (B, M_i, K_i, C)
+    and its cnt (B, M_i) in the grouping launch's one buffer, which holds
+    every scale's grouped values scale by scale, then every scale's counts."""
+    views, g_off = [], 0
+    c_off = sum(b * m * k * c for m, k in zip(ms, ks))
+    for m, k in zip(ms, ks):
+        views.append((((b, m, k, c), (m * k * c, k * c, c, 1), g_off),
+                      ((b, m), (m, 1), c_off)))
+        g_off += b * m * k * c
+        c_off += b * m
+    return views
+
+
+def split_outputs(out: torch.Tensor, views) -> list:
+    """``[(grouped float32, cnt int32)]``: ``output_views`` of ``out``."""
+    cnt = out.view(torch.int32)
+    return [(out.as_strided(*g), cnt.as_strided(*k)) for g, k in views]
+
+
+class _Plan:
+    """What a grouping launch needs besides its pointers, per batch size,
+    layout and device: the section table on the device, the launch shape
+    and the output views."""
+
+    def __init__(self, lib, b, n, c, ms, ks, dis_zs, per_scale_refs, device, sms):
+        self.k_max = max(ks)
+        self.warps = _MAX_WARPS
+        while (self.warps and lib.fcn_group_smem_bytes(n, c, self.k_max, self.warps)
+               + _STATIC_SMEM > _MAX_SMEM):
+            self.warps -= 1
+        if not self.warps:
+            raise ValueError(f"a row of N*C={n * c} floats, its N depths and one "
+                             f"staged span of K={self.k_max} slots exceed the "
+                             f"{_MAX_SMEM} B of shared memory a block may use")
+        self.n_tiles = num_tiles(b, sum(ms), sms)
+        self.table, self.dz, self.begin = (
+            torch.from_numpy(a).to(device) for a in section_table(
+                ms, ks, dis_zs, c, self.n_tiles, per_scale_refs))
+        self.ref_rows = [3 * m for m in ms] if per_scale_refs else [3 * sum(ms)]
+        self.size = b * sum(m * k * c for m, k in zip(ms, ks)) + b * sum(ms)
+        self.views = output_views(b, ms, ks, c)
 
 
 def _launch_group(points: torch.Tensor, refs, dis_zs, nsamples):
     """One launch of the grouping kernel over the scales ``refs``; the
     callers count it."""
-    _check_points(points, 3, "points")
+    index, sms = _check_points(points, 3, "points")
     if not (len(refs) == len(dis_zs) == len(nsamples) >= 1):
         raise ValueError("refs, dis_zs and nsamples must match in length")
     b, n, c = points.shape
+    device = points.device
     for r in refs:
-        if (r.device != points.device or r.dtype != torch.float32
+        if (r.device != device or r.dtype != torch.float32
                 or r.dim() != 3 or r.shape[0] != b or r.shape[2] != 3):
             raise ValueError(f"each ref must be (B={b}, M, 3) float32 on "
-                             f"{points.device}, got {tuple(r.shape)} "
-                             f"{r.dtype} {r.device}")
-    ks = [int(k) for k in nsamples]
+                             f"{device}, got {tuple(r.shape)} {r.dtype} {r.device}")
+    ks = tuple(int(k) for k in nsamples)
     if any(k < 1 or k > n for k in ks):
-        raise ValueError(f"nsamples {ks} must lie in [1, N={n}]")
-    if n * c * 4 > _MAX_SMEM:
-        raise ValueError(f"a row of N*C={n * c} floats exceeds the "
-                         f"{_MAX_SMEM} B of shared memory a block may use")
-
-    ms = [int(r.shape[1]) for r in refs]
-    meta, dz = _section_meta(ms, ks, dis_zs, c, points.device)
-    ref_cat = torch.cat([r.contiguous() for r in refs], dim=1)
-    sizes = [b * m * k * c for m, k in zip(ms, ks)]
-    grouped = torch.empty(sum(sizes), dtype=torch.float32, device=points.device)
-    cnt = torch.empty(b * sum(ms), dtype=torch.int32, device=points.device)
-
+        raise ValueError(f"nsamples {list(ks)} must lie in [1, N={n}]")
+    ms = tuple(int(r.shape[1]) for r in refs)
+    per_scale_refs = len(refs) <= _MAX_REF_PTRS
     lib = _lib()
-    stream = torch.cuda.current_stream(points.device).cuda_stream
+    key = (b, n, c, ms, ks, tuple(dis_zs), per_scale_refs, device)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _Plan(lib, b, n, c, ms, ks, dis_zs, per_scale_refs,
+                                   device, sms)
+    if per_scale_refs:
+        refs = [r if r.is_contiguous() else r.contiguous() for r in refs]
+    else:
+        refs = [torch.cat([r.contiguous() for r in refs], dim=1)]
+    out = torch.empty(plan.size, dtype=torch.float32, device=device)
     err = lib.fcn_group_depth_point_multi(
-        points.data_ptr(), ref_cat.data_ptr(), meta.data_ptr(), dz.data_ptr(),
-        grouped.data_ptr(), cnt.data_ptr(), b, n, c, sum(ms),
-        _device_index(points), stream)
+        points.data_ptr(), (ctypes.c_void_p * len(refs))(*[r.data_ptr() for r in refs]),
+        (ctypes.c_int64 * len(refs))(*plan.ref_rows), len(refs), plan.table.data_ptr(),
+        plan.dz.data_ptr(), plan.begin.data_ptr(), plan.n_tiles, out.data_ptr(),
+        out.data_ptr() + 4 * plan.views[0][1][2], b, n, c, plan.k_max, plan.warps,
+        index, torch.cuda.current_stream(device).cuda_stream)
     _check_launch(lib, err, "group_depth_point")
-
-    outs, g_off, c_off = [], 0, 0
-    for m, k, size in zip(ms, ks, sizes):
-        outs.append((grouped[g_off:g_off + size].view(b, m, k, c),
-                     cnt[c_off:c_off + b * m].view(b, m)))
-        g_off += size
-        c_off += b * m
-    return outs
+    return split_outputs(out, plan.views)
 
 
 def group_depth_point_multi_cuda(points: torch.Tensor, refs, dis_zs, nsamples):
@@ -162,6 +240,10 @@ def group_depth_point_multi_cuda(points: torch.Tensor, refs, dis_zs, nsamples):
     ``dis_zs[i]`` (compared in float32) and slot count ``nsamples[i]``.
     Returns ``[(grouped (B, M_i, K_i, C) float32, cnt (B, M_i) int32)]``,
     views of one flat buffer laid out scale by scale.
+
+    It takes any number of scales, as the Pallas kernel does (which
+    concatenates the refs, ``select_pallas.py:381``): up to 16 cross to the
+    kernel as per-scale pointers, more are concatenated into one.
     """
     outs = _launch_group(points, refs, dis_zs, nsamples)
     group_depth_point_multi_cuda.launches += 1
@@ -188,7 +270,7 @@ def query_depth_point_cuda(z_points: torch.Tensor, z_ref: torch.Tensor,
                            dis_z: float, nsample: int):
     """Select only: z_points (B, N), z_ref (B, M) float32 CUDA, contiguous
     -> idx (B, M, K) int32 gather indices and cnt (B, M) int32."""
-    _check_points(z_points, 0, "z_points")
+    index, _ = _check_points(z_points, 0, "z_points")
     b, n = z_points.shape
     if (z_ref.device != z_points.device or z_ref.dtype != torch.float32
             or z_ref.dim() != 2 or z_ref.shape[0] != b
@@ -210,8 +292,7 @@ def query_depth_point_cuda(z_points: torch.Tensor, z_ref: torch.Tensor,
     stream = torch.cuda.current_stream(z_points.device).cuda_stream
     err = lib.fcn_query_depth_point(
         z_points.data_ptr(), z_ref.data_ptr(), float(np.float32(dis_z)),
-        idx.data_ptr(), cnt.data_ptr(), b, n, m, k, _device_index(z_points),
-        stream)
+        idx.data_ptr(), cnt.data_ptr(), b, n, m, k, index, stream)
     _check_launch(lib, err, "query_depth_point")
     query_depth_point_cuda.launches += 1
     return idx, cnt

@@ -34,7 +34,7 @@ from typing import Callable, Dict, Sequence
 import numpy as np
 import torch
 
-from frustum_convnet_tpu.models.spec import DetModelSpec
+from frustum_convnet_tpu_torch.models.spec import DetModelSpec
 from frustum_convnet_tpu_torch.models.det import compute_losses
 
 BATCH_KEYS = ("point_cloud", "one_hot", "refs", "cls_label", "box3d_center",

@@ -28,8 +28,8 @@ import os
 
 import torch
 
-from frustum_convnet_tpu.data.fixtures import make_batch
 from frustum_convnet_tpu_torch import configs
+from frustum_convnet_tpu_torch.data.fixtures import make_batch
 from frustum_convnet_tpu_torch.engine.test import strict_fp32
 from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet

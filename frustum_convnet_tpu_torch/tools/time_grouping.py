@@ -1,0 +1,196 @@
+"""Times the grouping kernels on one CUDA card, beside their bounds.
+
+    python3 frustum_convnet_tpu_torch/tools/time_grouping.py [--tree DIR] [--out FILE]
+
+Run as a script (not with ``-m``), so that ``--tree`` can point it at another
+checkout of the repository, for example the parent commit unpacked with
+``git archive`` into the gitignored ``_archive/``: the script then imports
+that tree's ``frustum_convnet_tpu_torch`` and builds that tree's kernels. To
+compare two trees on one card, run both in one command, in turns (parent,
+change, change, parent).
+
+At the flagship shapes (``cfgs/det_sample.yaml``, inputs from
+``ops/grouping_cases.flagship_case``) it times kernel 1 (every scale in one
+launch) at B = 32, 64 and 256, and kernels 2 (one scale) and 3 (select only)
+at B = 256 on scales 1 (M=280, K=32) and 4 (M=35, K=128):
+
+* ``alone``: the kernel's own device time, the mean over 50 launches of the
+  kernels that ``torch.profiler`` names after it;
+* ``calls``: 200 back-to-back calls of the Python wrapper between two CUDA
+  events, which includes whatever of the wrapper's host time the card does
+  not hide;
+* ``bound``: ``kernel_bound`` of the same inputs, and ``share`` = bound /
+  alone.
+
+Prints one line per measurement and, last, one JSON object with all of them,
+the card's name and power limit; ``--out`` also writes that object to FILE.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
+# H100 SXM float32 instructions outside the tensor cores: the data sheet's
+# 67 TFLOP/s counts each fused multiply-add as two operations, and the
+# subtracts and compares counted here are one instruction each
+FP32_OPS_PER_S = 67e12 / 2
+KERNEL_NAMES = {"group_depth_point_multi": "group_depth_point_kernel",
+                "group_depth_point": "group_depth_point_kernel",
+                "query_depth_point": "query_depth_point_kernel"}
+
+
+def scanned_pairs(z_points, z_ref, dis_z: float, k: int) -> int:
+    """(section, point) pairs the select must test on these inputs: up to and
+    including the K-th hit in storage order, or the whole row when a
+    section has fewer hits. z_points (B, N), z_ref (B, M)."""
+    import torch
+
+    total = 0
+    for b in range(0, z_points.shape[0], 32):  # in slices, to bound the memory
+        zp, zr = z_points[b:b + 32], z_ref[b:b + 32]
+        seen = torch.cumsum(((zp[:, None, :] - zr[:, :, None]).abs()
+                             < dis_z).to(torch.int32), dim=-1)
+        kth = torch.argmax((seen >= k).to(torch.int8), dim=-1) + 1
+        total += int(torch.where(seen[..., -1] < k, zp.shape[1], kth).sum())
+    return total
+
+
+def kernel_bound(name: str, points, refs, dzs, ks) -> dict:
+    """The least time the card could take for one call of kernel ``name`` on
+    these inputs: the larger of its bytes (each input read once, each
+    output written once) over the HBM rate and its float32 operations (a
+    subtract and a compare per tested (section, point) pair, and for the
+    grouping modes three subtracts per slot) over the float32 instruction
+    rate.
+    ``points`` (B, N, C) and ``refs`` [(B, M_i, 3)] are CUDA tensors; for
+    kernel 3 the inputs are their depth channels."""
+    b, n, c = points.shape
+    ms = [int(r.shape[1]) for r in refs]
+    pairs = sum(scanned_pairs(points[..., 2], r[..., 2], d, int(k))
+                for r, d, k in zip(refs, dzs, ks))
+    slots = b * sum(m * int(k) for m, k in zip(ms, ks))
+    if name == "query_depth_point":
+        moved = 4 * (b * n + b * sum(ms) + slots + b * sum(ms))
+        ops = 2 * pairs
+    else:
+        moved = 4 * (b * n * c + 3 * b * sum(ms) + slots * c + b * sum(ms))
+        ops = 2 * pairs + 3 * slots
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": moved, "operations": ops}
+
+
+def cuda_time_ms(fn, iters: int = 200) -> float:
+    """Mean milliseconds per call of ``fn`` over ``iters`` back-to-back calls
+    on the current stream, between two CUDA events, after 3 warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _alone_ms(fn, kernel_name: str, iters: int = 50) -> float:
+    """Mean device time of the kernels named ``kernel_name`` over ``iters``
+    calls, from ``torch.profiler``; raises if it saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel_name in e.key]
+    times = [getattr(e, "device_time_total", None) or e.cuda_time_total for e in events]
+    counts = [e.count for e in events]
+    if not times or sum(counts) != iters:
+        raise RuntimeError(f"the profiler saw {sum(counts)} launches of "
+                           f"{kernel_name} in {iters} calls")
+    return sum(times) / sum(counts) / 1e3
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))),
+        help="checkout whose frustum_convnet_tpu_torch is timed (default: this one)")
+    p.add_argument("--out", default="", help="also write the JSON object here")
+    args = p.parse_args(argv)
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_grouping measures on a CUDA card; none is visible")
+    from frustum_convnet_tpu_torch import configs
+    from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
+
+    cfg = configs.get_default_cfg()
+    configs.merge_cfg_from_file(os.path.join(tree, "cfgs", "det_sample.yaml"), cfg)
+    spec = configs.get_model_spec(cfg)
+    dev = torch.device("cuda", 0)
+    rows = []
+
+    def measure(name, label, fn, points, refs, dzs, ks):
+        alone = _alone_ms(fn, KERNEL_NAMES[name])
+        calls = cuda_time_ms(fn)
+        bound = kernel_bound(name, points, refs, dzs, ks)
+        row = {"kernel": name, "case": label, "alone_ms": alone, "calls_ms": calls,
+               "share": bound["bound_ms"] / alone, **bound}
+        rows.append(row)
+        print(f"[time] {name} {label}: alone {alone:.4f} ms, calls {calls:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
+              f"{row['share']:.1%}", flush=True)
+
+    for batch in (32, 64, 256):
+        pts, refs, dzs, ks = grouping_cases.flagship_case(spec, batch=batch)
+        t_pts = torch.from_numpy(pts).to(dev)
+        t_refs = [torch.from_numpy(r).to(dev) for r in refs]
+        measure("group_depth_point_multi", f"B={batch}",
+                lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks),
+                t_pts, t_refs, dzs, ks)
+    z_points = t_pts[..., 2].contiguous()
+    for i in (0, 3):
+        ref, d, k = t_refs[i], dzs[i], ks[i]
+        z_ref = ref[..., 2].contiguous()
+        label = f"B=256 scale {i + 1} (M={ref.shape[1]}, K={k})"
+        measure("group_depth_point", label,
+                lambda: select_cuda.group_depth_point_cuda(t_pts, ref, d, k),
+                t_pts, [ref], [d], [k])
+        measure("query_depth_point", label,
+                lambda: select_cuda.query_depth_point_cuda(z_points, z_ref, d, k),
+                t_pts, [ref], [d], [k])
+    with open(os.path.join(tree, select_cuda.KERNEL_SOURCE), "rb") as f:
+        source = hashlib.sha256(f.read()).hexdigest()[:12]
+    result = {"tree": args.tree, "kernel_source_sha256": source, "card": card(),
+              "device": torch.cuda.get_device_name(0), "rows": rows}
+    print(json.dumps(result))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    return result
+
+
+if __name__ == "__main__":
+    main()

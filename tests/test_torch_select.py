@@ -87,6 +87,99 @@ def test_single_scale_modes_match_jax_kernels(name):
         np.testing.assert_array_equal(cnt.numpy(), np.asarray(cj))
 
 
+def _emulate_group_launch(case, n_tiles, per_scale_refs):
+    """The grouping kernel's launch in numpy: the section table of
+    ``select_cuda.section_table``, walked tile by tile as the CUDA blocks walk
+    it, each section written as its span of the one output buffer."""
+    pts, refs, dzs, ks = case
+    b, n, c = pts.shape
+    ms = [r.shape[1] for r in refs]
+    table, dz, begin = select_cuda.section_table(ms, ks, dzs, c, n_tiles,
+                                                 per_scale_refs)
+    slots = [r.reshape(b, -1) for r in refs] if per_scale_refs else \
+        [np.concatenate(refs, axis=1).reshape(b, -1)]
+    total = sum(b * m * k * c for m, k in zip(ms, ks))
+    out = np.full(total + b * sum(ms), np.nan, np.float32)
+    cnt = out.view(np.int32)
+    for row in range(b):
+        for t in range(n_tiles):
+            for e in range(begin[t], begin[t + 1]):
+                k, m_scale, m_local, g_prefix, c_prefix, slot, col = table[e]
+                center = slots[slot][row, col:col + 3]
+                hits = np.flatnonzero(np.abs(pts[row, :, 2] - center[2]) < dz[e])
+                sel = np.full(k, hits[0] if len(hits) else 0)
+                sel[:min(len(hits), k)] = hits[:k]
+                section = row * m_scale + m_local
+                g0 = b * g_prefix + section * k * c
+                span = pts[row, sel].copy()
+                span[:, :3] -= center
+                out[g0:g0 + k * c] = span.ravel()
+                cnt[total + b * c_prefix + section] = min(len(hits), k)
+    return select_cuda.split_outputs(torch.from_numpy(out),
+                                     select_cuda.output_views(b, ms, ks, c))
+
+
+@pytest.mark.parametrize("per_scale_refs", [True, False])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_section_table_tiles_cover_every_section(name, per_scale_refs):
+    """The launch's section table, walked as the kernel walks it, writes
+    every section's span and count exactly where the plain version's
+    outputs lie, bit for bit; its tiles hold every section once, longest
+    first, with output bytes within one longest section of each other."""
+    pts, refs, dzs, ks = CASES[name]
+    b, _, c = pts.shape
+    n_sections = sum(r.shape[1] for r in refs)
+    n_tiles = select_cuda.num_tiles(b, n_sections, sms=132)
+    got = _emulate_group_launch(CASES[name], n_tiles, per_scale_refs)
+    for (g, cnt), (g0, cnt0) in zip(got, _torch_multi(CASES[name])):
+        assert g.shape == g0.shape and torch.equal(g, g0)
+        assert torch.equal(cnt, cnt0)
+    table, _, begin = select_cuda.section_table(
+        [r.shape[1] for r in refs], ks, dzs, c, n_tiles, per_scale_refs)
+    assert len(table) == n_sections and begin[-1] == n_sections
+    assert len({(s, col) for s, col in table[:, 5:]}) == n_sections
+    loads = [table[begin[t]:begin[t + 1], 0].sum() * c for t in range(n_tiles)]
+    assert max(loads) - min(loads) <= max(ks) * c
+    for t in range(n_tiles):
+        k_tile = table[begin[t]:begin[t + 1], 0]
+        assert (np.diff(k_tile) <= 0).all()
+
+
+@pytest.mark.parametrize("batch,sms,tiles", [(256, 132, 3), (64, 132, 5),
+                                             (32, 132, 9), (8, 132, 16),
+                                             (1, 132, 16), (32, 2, 3)])
+def test_tile_count_fills_the_card(batch, sms, tiles):
+    assert select_cuda.num_tiles(batch, 525, sms) == tiles
+    assert select_cuda.num_tiles(batch, 3, sms) == min(tiles, 3)
+
+
+@pytest.mark.parametrize("name", ["empty_and_overflow", "multi_scale_c4",
+                                  "odd_spans_n201"])
+def test_kernel_bound_counts_the_pairs_this_data_needs(name):
+    """``kernel_bound``'s scan count against a loop that tests each point in
+    storage order until the K-th hit, and its bytes from the shapes."""
+    from frustum_convnet_tpu_torch.tools.time_grouping import kernel_bound, scanned_pairs
+
+    pts, refs, dzs, ks = CASES[name]
+    pairs = 0
+    for r, d, k in zip(refs, dzs, ks):
+        scale = 0
+        for zp, zr in zip(pts[..., 2], r[..., 2]):
+            for z in zr:
+                hits = np.flatnonzero(np.abs(zp - z) < np.float32(d))
+                scale += hits[k - 1] + 1 if len(hits) >= k else len(zp)
+        assert scanned_pairs(torch.from_numpy(pts[..., 2]),
+                             torch.from_numpy(r[..., 2]), d, k) == scale
+        pairs += scale
+    b, n, c = pts.shape
+    slots = b * sum(r.shape[1] * k for r, k in zip(refs, ks))
+    bound = kernel_bound("group_depth_point_multi", torch.from_numpy(pts),
+                         [torch.from_numpy(r) for r in refs], dzs, ks)
+    assert bound["operations"] == 2 * pairs + 3 * slots
+    assert bound["bytes"] == 4 * (b * n * c + 4 * b * sum(r.shape[1] for r in refs)
+                                  + slots * c)
+
+
 def test_pointnet_scale_groups_for_itself_like_flax():
     """``PointNetScale(grouped=None)`` (``net.py:428-430``) in eval and in
     train mode against the Flax module with ``grouped=None``, on points
@@ -165,32 +258,56 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                            dzs[0], ks[0])
 
 
-def test_port_imports_no_jax():
-    """The port's engines, model, train step, profiler and ops load without
-    jax, flax or optax."""
-    code = (
-        "import sys\n"
-        "import frustum_convnet_tpu_torch.engine.test\n"
-        "import frustum_convnet_tpu_torch.engine.checkpoints\n"
-        "import frustum_convnet_tpu_torch.models.net\n"
-        "import frustum_convnet_tpu_torch.models.det\n"
-        "import frustum_convnet_tpu_torch.models.weights\n"
-        "import frustum_convnet_tpu_torch.ops.select_cuda\n"
-        "import frustum_convnet_tpu_torch.ops.grouping_cases\n"
-        "import frustum_convnet_tpu_torch.parallel.train_step\n"
-        "import frustum_convnet_tpu_torch.engine.train\n"
-        "import frustum_convnet_tpu_torch.tools.profile_stages\n"
-        "import frustum_convnet_tpu_torch.core.iou\n"
-        "import frustum_convnet_tpu_torch.core.geometry\n"
-        "import frustum_convnet_tpu_torch.models.losses\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
-        "assert not bad, bad\n"
-    )
+def test_port_imports_nothing_of_the_jax_package(tmp_path):
+    """In a fresh interpreter, after every module of the port is imported and
+    the training and serving entry points have run on the CPU at a tiny
+    size, no module of the JAX package (``frustum_convnet_tpu``), nor jax,
+    flax or optax, is loaded."""
+    code = f"""
+import importlib, pkgutil, sys
+import torch
+torch.set_num_threads(1)
+import frustum_convnet_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+import chip_smoke
+from frustum_convnet_tpu_torch import configs
+from frustum_convnet_tpu_torch.engine import checkpoints
+from frustum_convnet_tpu_torch.engine import test as serve
+from frustum_convnet_tpu_torch.engine import train as trainer
+
+cfg_file = {os.path.join(ROOT, "cfgs", "det_sample.yaml")!r}
+tiny = ["DATA.MAX_DEPTH", "48", "DATA.NUM_SAMPLES", "128",
+        "DATA.STRIDE", "(1.0, 2.0, 4.0, 8.0)",
+        "DATA.HEIGHT_HALF", "(1.0, 2.0, 4.0, 8.0)",
+        "TRAIN.BATCH_SIZE", "4", "TEST.BATCH_SIZE", "4", "NUM_WORKERS", "1",
+        "disp", "1"]
+cfg = configs.get_default_cfg()
+configs.merge_cfg_from_file(cfg_file, cfg)
+configs.merge_cfg_from_list(tiny, cfg)
+spec = configs.get_model_spec(cfg)
+work = {str(tmp_path)!r}
+chip_smoke.make_train_split(work + "/train", spec, num_train=8, num_val=4)
+trainer.main(["--cfg", cfg_file, "--device", "cpu"] + tiny + [
+    "DATA.DATA_ROOT", work + "/train", "OUTPUT_DIR", work + "/out",
+    "TRAIN.MAX_EPOCH", "1"])
+split = chip_smoke.make_val_split(work + "/serve", spec, num_frames=2,
+                                  cars_per_frame=2)
+res = serve.main(["--cfg", cfg_file, "--device", "cpu", "--gt_dir",
+                  split["gt_dir"], "--idx_path", split["idx_path"]] + tiny + [
+    "DATA.DATA_ROOT", split["pickle_dir"], "OUTPUT_DIR", work + "/serve_out",
+    "TPU.INFER_GROUP", "1",
+    "TEST.WEIGHTS", checkpoints.checkpoint_paths(work + "/out")["final"]])
+assert res["stats"]["frustums"] == 4 and res["ap"] is not None, res
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
+assert not bad, bad
+print("standalone ok")
+"""
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0 and "standalone ok" in proc.stdout, proc.stderr[-4000:]
 
 
 def test_profiler_stages_run_on_cpu_and_timing_needs_a_card():

@@ -108,6 +108,34 @@ def test_kernel_flagship_shapes(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 64, 130])
+def test_kernel_flagship_batches(cuda, batch):
+    """Every tile count the batch gives (16 at B=1 down to 3 at B=130)."""
+    cfg = get_default_cfg()
+    merge_cfg_from_file("cfgs/det_sample.yaml", cfg)
+    _check(grouping_cases.flagship_case(get_model_spec(cfg), batch=batch, seed=batch), cuda)
+
+
+@pytest.mark.cuda
+def test_kernel_many_scales_and_strided_refs(cuda):
+    """More scales than the launch's ref pointers (the refs are then
+    concatenated) and refs that are views with strides."""
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(0, 20, (2, 300, 3)).astype(np.float32)
+    refs = [rng.uniform(0, 20, (2, 4 + s, 3)).astype(np.float32) for s in range(18)]
+    dzs = [0.2 + 0.1 * s for s in range(18)]
+    ks = [1 + s for s in range(18)]
+    _check((pts, refs, dzs, ks), cuda)
+    t_pts = torch.from_numpy(pts).to(cuda)
+    wide = torch.from_numpy(rng.uniform(0, 20, (2, 40, 6)).astype(np.float32)).to(cuda)
+    strided = [wide[:, :, :3], wide[:, ::2, 3:]]
+    got = select_cuda.group_depth_point_multi_cuda(t_pts, strided, [0.5, 1.0], [8, 16])
+    want = group_depth_point_multi(t_pts, strided, [0.5, 1.0], [8, 16])
+    for (g, c), (g0, c0) in zip(got, want):
+        assert torch.equal(g, g0) and torch.equal(c, c0)
+
+
+@pytest.mark.cuda
 def test_auto_dispatch_launches_kernel_for_cuda_tensors(cuda):
     pts, refs, dzs, ks = CASES["multi_scale_small"]
     counters = (select_cuda.group_depth_point_multi_cuda,
@@ -162,3 +190,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
             t_pts[..., 2].contiguous().requires_grad_(), z_ref, dzs[0], ks[0])
     with pytest.raises(ValueError, match="contiguous"):
         select_cuda.query_depth_point_cuda(t_pts[..., 2], z_ref, dzs[0], ks[0])
+    big = torch.zeros((1, 16384, 3), device=cuda)  # the row fits, the staging does not
+    with pytest.raises(ValueError, match="staged span"):
+        select_cuda.group_depth_point_multi_cuda(
+            big, [torch.zeros((1, 2, 3), device=cuda)], [1.0], [8])
