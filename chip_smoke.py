@@ -30,9 +30,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (grouped, idx and cnt), at the flagship shapes (B=32, the profiler's
    batch, and B=256) and on every edge case of
    ``tests/test_select_pallas.py``, kernel 2 also against kernel 1 per
-   scale; both timed with their plain versions at B=256 on scales 1
-   (M=280, K=32) and 4 (M=35, K=128), in turns (plain, kernel, kernel,
-   plain);
+   scale, kernel 3 also on ``ops/grouping_cases.select_cases`` (NaN and
+   +-inf, equal and ulp-apart depths, windows on bin edges, a clustered
+   row); both timed with their plain versions at B=256 on scales 1
+   (M=280, K=32) and 4 (M=35, K=128), and kernel 3 at B=32 on scale 1, in
+   turns (plain, kernel, kernel, plain), each beside its bound and share;
 7. profiler: ``frustum_convnet_tpu_torch.tools.profile_stages.main`` at
    batch 32, which must launch all three kernels; prints its stage lines;
 8. train step: one step of the flagship model at batch 8 of the synthetic
@@ -215,35 +217,47 @@ def phase_modes(spec, device) -> dict:
                                            (g - g0).abs().max().item())
             err["query_depth_point"] = max(err["query_depth_point"],
                                            (idx - idx0).abs().max().item())
+    select = grouping_cases.select_cases()
+    for name, (zp, zr, d, k) in select.items():
+        z_points, z_ref = (torch.from_numpy(a).to(device) for a in (zp, zr))
+        idx, cnt = select_cuda.query_depth_point_cuda(z_points, z_ref, d, k)
+        idx0, cnt0 = qdp.query_depth_point(z_points, z_ref, d, k)
+        torch.cuda.synchronize()
+        if not (idx.shape == idx0.shape and torch.equal(idx, idx0)
+                and torch.equal(cnt, cnt0)):
+            raise AssertionError(f"kernel 3 != plain version on select case {name}")
     print(f"[modes] kernels 2 and 3 bit-identical to their plain versions (and "
           f"kernel 2 to kernel 1) on {len(cases)} cases (flagship B=32, 256 and "
-          f"{len(cases) - 2} edge cases)")
+          f"{len(cases) - 2} edge cases); kernel 3 also on {len(select)} select "
+          f"cases (non-finite, equal and ulp-apart depths, bin edges, clustered)")
 
-    pts, refs, dzs, ks = cases["flagship_b256"]
-    t_pts = torch.from_numpy(pts).to(device)
-    z_points = t_pts[..., 2].contiguous()
     out = {}
-    for i in (0, 3):
+    for batch, i, names in ((256, 0, ("group_depth_point", "query_depth_point")),
+                            (256, 3, ("group_depth_point", "query_depth_point")),
+                            (32, 0, ("query_depth_point",))):
+        pts, refs, dzs, ks = cases[f"flagship_b{batch}"]
+        t_pts = torch.from_numpy(pts).to(device)
+        z_points = t_pts[..., 2].contiguous()
         t_ref = torch.from_numpy(refs[i]).to(device)
         z_ref = t_ref[..., 2].contiguous()
         m, d, k = t_ref.shape[1], dzs[i], ks[i]
-        for name, kernel, plain, out_bytes in (
-                ("group_depth_point",
-                 lambda: select_cuda.group_depth_point_cuda(t_pts, t_ref, d, k),
-                 lambda: qdp.group_depth_point(t_pts, t_ref, d, k),
-                 256 * m * k * 3 * 4),
-                ("query_depth_point",
-                 lambda: select_cuda.query_depth_point_cuda(z_points, z_ref, d, k),
-                 lambda: qdp.query_depth_point(z_points, z_ref, d, k),
-                 256 * m * k * 4)):
+        calls = {"group_depth_point":
+                 (lambda: select_cuda.group_depth_point_cuda(t_pts, t_ref, d, k),
+                  lambda: qdp.group_depth_point(t_pts, t_ref, d, k), batch * m * k * 3 * 4),
+                 "query_depth_point":
+                 (lambda: select_cuda.query_depth_point_cuda(z_points, z_ref, d, k),
+                  lambda: qdp.query_depth_point(z_points, z_ref, d, k), batch * m * k * 4)}
+        for name in names:
+            kernel, plain, out_bytes = calls[name]
             ms, plain_ms, (k1, k2, p1, p2) = _in_turns(kernel, plain)
             bound = kernel_bound(name, t_pts, [t_ref], [d], [k])
-            print(f"[modes] {name} scale {i + 1} (M={m}, K={k}) B=256: kernel "
+            print(f"[modes] {name} scale {i + 1} (M={m}, K={k}) B={batch}: kernel "
                   f"{ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain {plain_ms:.4f} ms "
                   f"({p1:.4f}, {p2:.4f}); output {out_bytes / 1e6:.2f} MB -> "
                   f"{out_bytes / ms / 1e6:.1f} GB/s; bound {bound['bound_ms']:.4f} "
-                  f"ms ({bound['bound_by']}), share {bound['bound_ms'] / ms:.1%}")
-            if i == 0:
+                  f"ms ({bound['bound_by']}; 2 operations a selected hit), share "
+                  f"{bound['bound_ms'] / ms:.1%}")
+            if (batch, i) == (256, 0):
                 out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
     return out

@@ -97,6 +97,62 @@ def edge_cases(seed: int = 3) -> dict:
     return cases
 
 
+def select_cases(seed: int = 4) -> dict:
+    """Inputs of the select alone (kernel 3) that stress its depth-bin
+    prefilter, apart from ``edge_cases`` because NaN never compares equal
+    in the grouped outputs: NaN and +-inf depths and centers (one row with
+    no finite depth), equal depths, depths a few ulps apart, window edges
+    exactly on point depths and on bin edges, unaligned rows and idx spans
+    (N=201, K=5 and 7), and a clustered row (2000 of 2048 points at
+    20+-1 m, K=256). Every case is ``(z_points (B, N) f32, z_ref (B, M) f32,
+    dis_z, nsample)``; all but the clustered row have N <= 512."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    special = np.array([np.nan, np.inf, -np.inf], f32)
+    cases = {}
+
+    zp = rng.uniform(0, 70, (3, 256)).astype(f32)
+    for row, count in ((0, 24), (1, 128)):
+        zp[row, rng.choice(256, count, replace=False)] = rng.choice(special, count)
+    zp[2] = rng.choice(special, 256)
+    zr = np.sort(rng.uniform(0, 70, (3, 48)).astype(f32), axis=1)
+    zr[:, :3] = special
+    cases["non_finite"] = (zp, zr, 1.0, 16)
+
+    zp = np.stack([np.full(128, 12.5, f32), np.zeros(128, f32)])
+    zr = np.array([[12.5, 12.0, 13.0, 12.25, 12.75, 11.0, 14.0, 0.0],
+                   [0.0, 0.5, -0.5, 0.25, -0.25, 1.0, 12.5, 0.49999997]], f32)
+    cases["equal_depths"] = (zp, zr, 0.5, 8)
+
+    # rows a few ulps wide around 30 and 0.001; windows of 3 ulps
+    ulps = rng.integers(-5, 6, (2, 160))
+    base = np.array([[30.0], [0.001]], f32)
+    step = np.spacing(base)
+    zp = (base + ulps * step).astype(f32)
+    zr = (base + np.arange(-7, 8)[None] * step).astype(f32)
+    cases["ulps_apart"] = (zp, zr, float(3 * step[0, 0]), 8)
+    cases["ulps_apart_wide_window"] = (zp, zr, 0.25, 32)
+
+    # depths on a 0.25 m grid over [0, 64]: 128 bins of exactly 0.5 m, and
+    # windows of 0.5 m whose edges fall on point depths and on bin edges
+    zp = rng.integers(0, 257, (2, 256)).astype(f32) * f32(0.25)
+    zp[:, :2] = [0.0, 64.0]
+    zr = np.concatenate([np.arange(0, 257, 3, dtype=f32)[None].repeat(2, 0) * f32(0.25),
+                         np.array([[-0.5, -0.25, 64.25, 64.5, 100.0]] * 2, f32)], axis=1)
+    cases["window_on_grid_edges"] = (zp, zr, 0.5, 16)
+
+    zp = rng.uniform(0, 30, (3, 201)).astype(f32)
+    for m, d, k in ((30, 1.5, 5), (11, 3.0, 7)):
+        zr = np.sort(rng.uniform(0, 30, (3, m)).astype(f32), axis=1)
+        cases[f"odd_spans_n201_k{k}"] = (zp, zr, d, k)
+
+    zp = np.concatenate([rng.uniform(19, 21, 2000), rng.uniform(0, 70, 48)])
+    zp = rng.permutation(zp).astype(f32)[None]
+    zr = (np.arange(140, dtype=f32) * f32(0.5) + f32(0.25))[None]
+    cases["clustered_n2048_k256"] = (zp, zr, 0.5, 256)
+    return cases
+
+
 def flagship_case(spec, batch: int, seed: int = 0):
     """The model's grouping input at ``spec``'s shapes: synthetic frustums
     from ``data/fixtures.make_batch`` with the config's section ladders."""

@@ -11,6 +11,9 @@ Counterpart of ``frustum_convnet_tpu/ops/select_pallas.py``. The kernels in
 * ``query_depth_point_cuda``: select only (gather indices), for
   ``query_depth_point_pallas`` (:241, :261).
 
+``depth_bin_candidates`` mirrors the select kernel's depth-bin prefilter in
+float32 on the CPU, for the tests that hold it to a superset of the hits.
+
 Each ``*_auto`` dispatch is the counterpart of the JAX one
 (``group_depth_point_multi_auto`` :435, ``group_depth_point_auto`` :449): a
 CPU tensor runs the plain PyTorch version (``ops/query_depth_point``), a
@@ -39,11 +42,14 @@ REPLACES = {
     "query_depth_point": "frustum_convnet_tpu/ops/select_pallas.py:241",
 }
 _MAX_SMEM = 227 * 1024  # bytes of shared memory a Hopper block may opt into
-_STATIC_SMEM = 128  # at least the grouping kernel's static shared memory
+_STATIC_SMEM = 256  # at least either kernel's static shared memory
 _MAX_WARPS = 8  # warps of a grouping block (kMaxWarps)
+_SELECT_WARPS = 16  # most warps of a select block (kSelectWarps)
 _MAX_REF_PTRS = 16  # ref pointers a grouping launch takes (kMaxRefPtrs)
+_BIN_BYTES = 32 * 1024  # shared memory the select's depth-bin bitmaps may take
 
 _plans: dict = {}
+_select_plans: dict = {}
 _devices: dict = {}
 
 
@@ -57,8 +63,11 @@ def _lib() -> ctypes.CDLL:
         lib.fcn_group_depth_point_multi.restype = i32
         lib.fcn_group_smem_bytes.argtypes = [i32, i32, i32, i32]
         lib.fcn_group_smem_bytes.restype = ctypes.c_size_t
+        lib.fcn_select_smem_bytes.argtypes = [i32, i32, i32, i32]
+        lib.fcn_select_smem_bytes.restype = ctypes.c_size_t
         lib.fcn_query_depth_point.argtypes = [
-            ptr, ptr, ctypes.c_float, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            ptr, ptr, ctypes.c_float, ptr, ptr, i32, i32, i32, i32, i32, i32,
+            i32, i32, ptr]
         lib.fcn_query_depth_point.restype = i32
         lib.fcn_cuda_error_string.argtypes = [i32]
         lib.fcn_cuda_error_string.restype = ctypes.c_char_p
@@ -269,8 +278,9 @@ group_depth_point_cuda.launches = 0
 def query_depth_point_cuda(z_points: torch.Tensor, z_ref: torch.Tensor,
                            dis_z: float, nsample: int):
     """Select only: z_points (B, N), z_ref (B, M) float32 CUDA, contiguous
-    -> idx (B, M, K) int32 gather indices and cnt (B, M) int32."""
-    index, _ = _check_points(z_points, 0, "z_points")
+    -> idx (B, M, K) int32 gather indices and cnt (B, M) int32. The launch
+    shape is a plan cached per (B, N, M, K, card)."""
+    index, sms = _check_points(z_points, 0, "z_points")
     b, n = z_points.shape
     if (z_ref.device != z_points.device or z_ref.dtype != torch.float32
             or z_ref.dim() != 2 or z_ref.shape[0] != b
@@ -281,24 +291,107 @@ def query_depth_point_cuda(z_points: torch.Tensor, z_ref: torch.Tensor,
     k = int(nsample)
     if not 1 <= k <= n:
         raise ValueError(f"nsample {k} must lie in [1, N={n}]")
-    if n * 4 > _MAX_SMEM:
-        raise ValueError(f"a row of N={n} depths exceeds the {_MAX_SMEM} B "
-                         "of shared memory a block may use")
     m = int(z_ref.shape[1])
+    lib = _lib()
+    key = (b, n, m, k, index)
+    plan = _select_plans.get(key)
+    if plan is None:  # (bins, tiles a row, warps a block)
+        n_bins = depth_bins(n)
+        n_tiles, warps = select_launch(b, m, sms)
+        plan = _select_plans[key] = (n_bins, n_tiles,
+                                     _select_warps(lib, n, k, n_bins, warps))
+    n_bins, n_tiles, warps = plan
     idx = torch.empty((b, m, k), dtype=torch.int32, device=z_points.device)
     cnt = torch.empty((b, m), dtype=torch.int32, device=z_points.device)
 
-    lib = _lib()
     stream = torch.cuda.current_stream(z_points.device).cuda_stream
     err = lib.fcn_query_depth_point(
         z_points.data_ptr(), z_ref.data_ptr(), float(np.float32(dis_z)),
-        idx.data_ptr(), cnt.data_ptr(), b, n, m, k, index, stream)
+        idx.data_ptr(), cnt.data_ptr(), b, n, m, k, n_bins, n_tiles, warps,
+        index, stream)
     _check_launch(lib, err, "query_depth_point")
     query_depth_point_cuda.launches += 1
     return idx, cnt
 
 
 query_depth_point_cuda.launches = 0
+
+
+def bitmap_words(n: int) -> int:
+    """Words of one depth-bin bitmap of the select kernel: a bit a point,
+    padded to whole 1024-point chunks (``bitmap_words`` in the source)."""
+    return -(-n // 1024) * 32
+
+
+def depth_bins(n: int) -> int:
+    """Depth bins of the select kernel's prefilter for rows of N points: as
+    many as fit 32 KB of bitmaps, at most 256 (256 up to N=1024, 128 up to
+    2048, 64 up to 4096, ...)."""
+    return max(1, min(256, _BIN_BYTES // (4 * bitmap_words(n))))
+
+
+def select_launch(batch: int, n_sections: int, sms: int) -> tuple:
+    """(tiles a row, warps a block) of the select kernel: one block of 16
+    warps a row once the batch alone gives every SM a block, so that a
+    row's bitmaps are built once; else the grouping's tile count
+    (``num_tiles``) in blocks of 8 warps."""
+    if batch >= sms:
+        return 1, _SELECT_WARPS
+    return num_tiles(batch, n_sections, sms), _MAX_WARPS
+
+
+def _select_warps(lib, n: int, k: int, n_bins: int, warps: int) -> int:
+    """``warps``, or fewer where the staged depths, the bitmaps and each
+    warp's four staging spans of K ints and candidate lists do not fit in
+    shared memory."""
+    while warps and lib.fcn_select_smem_bytes(n, k, n_bins, warps) + _STATIC_SMEM > _MAX_SMEM:
+        warps -= 1
+    if not warps:
+        raise ValueError(f"a row of N={n} depths, its {n_bins} depth-bin bitmaps "
+                         f"and one staged span of K={k} indices exceed the "
+                         f"{_MAX_SMEM} B of shared memory a block may use")
+    return warps
+
+
+def depth_bin_candidates(z_points: torch.Tensor, z_ref: torch.Tensor,
+                         dis_z: float, n_bins: int | None = None) -> torch.Tensor:
+    """(B, M, N) bool: the points the select kernel's depth-bin prefilter
+    hands to its exact test, computed with the kernel's float32 arithmetic
+    step for step (a mirror for tests; the kernel never calls it).
+
+    Per row: ``n_bins`` (default ``depth_bins(N)``) equal bins over the
+    finite depths' [lo, hi], or one bin when there is no finite depth or
+    the range is under ``n_bins * 2**-21 * max(|lo|, |hi|)``; bin(x) =
+    trunc(clamp((x - lo) * inv_w, 0, top)) with NaN to 0. A section's
+    candidates are the finite points in bins bin(cz - dz) - 1 ..
+    bin(cz + dz) + 1, clamped to the bins.
+    """
+    z = z_points.to(torch.float32)
+    nb = depth_bins(z.shape[1]) if n_bins is None else int(n_bins)
+    finite = torch.isfinite(z)
+    inf = torch.tensor(float("inf"))
+    lo = torch.where(finite, z, inf).amin(dim=1)
+    hi = torch.where(finite, z, -inf).amax(dim=1)
+    lo, hi = (torch.where(lo <= hi, x, torch.zeros_like(x)) for x in (lo, hi))
+    span = hi - lo
+    inv_w = torch.tensor(float(nb)) / span
+    wide = (span > torch.maximum(lo.abs(), hi.abs()) * np.float32(nb * 2.0 ** -21)) \
+        & torch.isfinite(inv_w)
+    inv_w = torch.where(wide, inv_w, torch.zeros_like(inv_w))
+    last = torch.where(wide, nb - 1, 0)
+    lo, inv_w, last = lo[:, None], inv_w[:, None], last[:, None]
+
+    def bin_of(x):
+        t = (x - lo) * inv_w
+        t = torch.where(torch.isnan(t), torch.zeros_like(t), t)
+        return torch.minimum(t.clamp(min=0.0), last.float()).to(torch.int32)
+
+    dz = torch.tensor(dis_z, dtype=torch.float32)
+    zr = z_ref.to(torch.float32)
+    bin_lo = (bin_of(zr - dz) - 1).clamp(min=0)
+    bin_hi = torch.minimum(bin_of(zr + dz) + 1, last)
+    pbin = bin_of(z)[:, None, :]
+    return finite[:, None, :] & (pbin >= bin_lo[..., None]) & (pbin <= bin_hi[..., None])
 
 
 def _dispatch(t: torch.Tensor, plain, kernel, *args):

@@ -11,8 +11,9 @@ change, change, parent).
 
 At the flagship shapes (``cfgs/det_sample.yaml``, inputs from
 ``ops/grouping_cases.flagship_case``) it times kernel 1 (every scale in one
-launch) at B = 32, 64 and 256, and kernels 2 (one scale) and 3 (select only)
-at B = 256 on scales 1 (M=280, K=32) and 4 (M=35, K=128):
+launch) at B = 32, 64 and 256, kernels 2 (one scale) and 3 (select only)
+at B = 256 on scales 1 (M=280, K=32) and 4 (M=35, K=128), and kernel 3 at
+the stage profiler's B = 32 on scale 1:
 
 * ``alone``: the kernel's own device time, the mean over 50 launches of the
   kernels that ``torch.profiler`` names after it;
@@ -45,42 +46,39 @@ KERNEL_NAMES = {"group_depth_point_multi": "group_depth_point_kernel",
                 "query_depth_point": "query_depth_point_kernel"}
 
 
-def scanned_pairs(z_points, z_ref, dis_z: float, k: int) -> int:
-    """(section, point) pairs the select must test on these inputs: up to and
-    including the K-th hit in storage order, or the whole row when a
-    section has fewer hits. z_points (B, N), z_ref (B, M)."""
-    import torch
-
+def selected_hits(z_points, z_ref, dis_z: float, k: int) -> int:
+    """Hits an exact select takes on these inputs: the sum over sections of
+    min(hits, K), which is the sum of its cnt. z_points (B, N), z_ref (B, M)."""
     total = 0
     for b in range(0, z_points.shape[0], 32):  # in slices, to bound the memory
         zp, zr = z_points[b:b + 32], z_ref[b:b + 32]
-        seen = torch.cumsum(((zp[:, None, :] - zr[:, :, None]).abs()
-                             < dis_z).to(torch.int32), dim=-1)
-        kth = torch.argmax((seen >= k).to(torch.int8), dim=-1) + 1
-        total += int(torch.where(seen[..., -1] < k, zp.shape[1], kth).sum())
+        hits = ((zp[:, None, :] - zr[:, :, None]).abs() < dis_z).sum(dim=-1)
+        total += int(hits.clamp(max=k).sum())
     return total
 
 
 def kernel_bound(name: str, points, refs, dzs, ks) -> dict:
     """The least time the card could take for one call of kernel ``name`` on
     these inputs: the larger of its bytes (each input read once, each
-    output written once) over the HBM rate and its float32 operations (a
-    subtract and a compare per tested (section, point) pair, and for the
-    grouping modes three subtracts per slot) over the float32 instruction
-    rate.
-    ``points`` (B, N, C) and ``refs`` [(B, M_i, 3)] are CUDA tensors; for
+    output written once) over the HBM rate and its float32 operations over
+    the float32 instruction rate. The operations are what any exact select
+    must do with these inputs, whatever it skips: a subtract and a compare
+    per selected hit (the sum of cnt), and for the grouping modes three
+    subtracts per slot. A select that tests every (section, point) pair
+    does more; a prefilter need not.
+    ``points`` (B, N, C) and ``refs`` [(B, M_i, 3)] are tensors; for
     kernel 3 the inputs are their depth channels."""
     b, n, c = points.shape
     ms = [int(r.shape[1]) for r in refs]
-    pairs = sum(scanned_pairs(points[..., 2], r[..., 2], d, int(k))
-                for r, d, k in zip(refs, dzs, ks))
+    hits = sum(selected_hits(points[..., 2], r[..., 2], d, int(k))
+               for r, d, k in zip(refs, dzs, ks))
     slots = b * sum(m * int(k) for m, k in zip(ms, ks))
     if name == "query_depth_point":
         moved = 4 * (b * n + b * sum(ms) + slots + b * sum(ms))
-        ops = 2 * pairs
+        ops = 2 * hits
     else:
         moved = 4 * (b * n * c + 3 * b * sum(ms) + slots * c + b * sum(ms))
-        ops = 2 * pairs + 3 * slots
+        ops = 2 * hits + 3 * slots
     t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -103,25 +101,28 @@ def cuda_time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _alone_ms(fn, kernel_name: str, iters: int = 50) -> float:
+def _alone_ms(fn, kernel_name: str, iters: int = 50, attempts: int = 3) -> float:
     """Mean device time of the kernels named ``kernel_name`` over ``iters``
-    calls, from ``torch.profiler``; raises if it saw none."""
+    calls, from ``torch.profiler``. A trace that misses launches (seen now
+    and then on the card) is taken again, up to ``attempts`` times; then
+    it raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel_name in e.key]
-    times = [getattr(e, "device_time_total", None) or e.cuda_time_total for e in events]
-    counts = [e.count for e in events]
-    if not times or sum(counts) != iters:
-        raise RuntimeError(f"the profiler saw {sum(counts)} launches of "
-                           f"{kernel_name} in {iters} calls")
-    return sum(times) / sum(counts) / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel_name in e.key]
+        times = [getattr(e, "device_time_total", None) or e.cuda_time_total for e in events]
+        counts = [e.count for e in events]
+        if times and sum(counts) == iters:
+            return sum(times) / sum(counts) / 1e3
+    raise RuntimeError(f"the profiler saw {sum(counts)} launches of "
+                       f"{kernel_name} in {iters} calls, {attempts} times")
 
 
 def card() -> str:
@@ -163,24 +164,31 @@ def main(argv=None) -> dict:
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
               f"{row['share']:.1%}", flush=True)
 
+    inputs = {}
     for batch in (32, 64, 256):
         pts, refs, dzs, ks = grouping_cases.flagship_case(spec, batch=batch)
         t_pts = torch.from_numpy(pts).to(dev)
         t_refs = [torch.from_numpy(r).to(dev) for r in refs]
+        inputs[batch] = (t_pts, t_refs, dzs, ks)
         measure("group_depth_point_multi", f"B={batch}",
                 lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks),
                 t_pts, t_refs, dzs, ks)
-    z_points = t_pts[..., 2].contiguous()
-    for i in (0, 3):
+    # kernels 2 and 3 at B=256 on scales 1 and 4; kernel 3 also at the
+    # profiler's B=32 on scale 1
+    for batch, i, kernels in ((256, 0, ("group_depth_point", "query_depth_point")),
+                              (256, 3, ("group_depth_point", "query_depth_point")),
+                              (32, 0, ("query_depth_point",))):
+        t_pts, t_refs, dzs, ks = inputs[batch]
+        z_points = t_pts[..., 2].contiguous()
         ref, d, k = t_refs[i], dzs[i], ks[i]
         z_ref = ref[..., 2].contiguous()
-        label = f"B=256 scale {i + 1} (M={ref.shape[1]}, K={k})"
-        measure("group_depth_point", label,
-                lambda: select_cuda.group_depth_point_cuda(t_pts, ref, d, k),
-                t_pts, [ref], [d], [k])
-        measure("query_depth_point", label,
-                lambda: select_cuda.query_depth_point_cuda(z_points, z_ref, d, k),
-                t_pts, [ref], [d], [k])
+        label = f"B={batch} scale {i + 1} (M={ref.shape[1]}, K={k})"
+        calls = {"group_depth_point":
+                 lambda: select_cuda.group_depth_point_cuda(t_pts, ref, d, k),
+                 "query_depth_point":
+                 lambda: select_cuda.query_depth_point_cuda(z_points, z_ref, d, k)}
+        for name in kernels:
+            measure(name, label, calls[name], t_pts, [ref], [d], [k])
     with open(os.path.join(tree, select_cuda.KERNEL_SOURCE), "rb") as f:
         source = hashlib.sha256(f.read()).hexdigest()[:12]
     result = {"tree": args.tree, "kernel_source_sha256": source, "card": card(),

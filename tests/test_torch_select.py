@@ -156,28 +156,168 @@ def test_tile_count_fills_the_card(batch, sms, tiles):
 @pytest.mark.parametrize("name", ["empty_and_overflow", "multi_scale_c4",
                                   "odd_spans_n201"])
 def test_kernel_bound_counts_the_pairs_this_data_needs(name):
-    """``kernel_bound``'s scan count against a loop that tests each point in
-    storage order until the K-th hit, and its bytes from the shapes."""
-    from frustum_convnet_tpu_torch.tools.time_grouping import kernel_bound, scanned_pairs
+    """``kernel_bound`` charges 2 operations per selected hit (the oracle's
+    cnt, summed), plus 3 per slot in the grouping modes, and its bytes come
+    from the shapes; in all three modes."""
+    from frustum_convnet_tpu_torch.tools.time_grouping import kernel_bound, selected_hits
 
     pts, refs, dzs, ks = CASES[name]
-    pairs = 0
+    hits = 0
     for r, d, k in zip(refs, dzs, ks):
-        scale = 0
-        for zp, zr in zip(pts[..., 2], r[..., 2]):
-            for z in zr:
-                hits = np.flatnonzero(np.abs(zp - z) < np.float32(d))
-                scale += hits[k - 1] + 1 if len(hits) >= k else len(zp)
-        assert scanned_pairs(torch.from_numpy(pts[..., 2]),
-                             torch.from_numpy(r[..., 2]), d, k) == scale
-        pairs += scale
+        _, cnt = query_depth_point_np(pts[..., 2], r[..., 2], d, k)
+        assert selected_hits(torch.from_numpy(pts[..., 2]),
+                             torch.from_numpy(r[..., 2]), d, k) == cnt.sum()
+        hits += int(cnt.sum())
     b, n, c = pts.shape
+    m = sum(r.shape[1] for r in refs)
     slots = b * sum(r.shape[1] * k for r, k in zip(refs, ks))
-    bound = kernel_bound("group_depth_point_multi", torch.from_numpy(pts),
-                         [torch.from_numpy(r) for r in refs], dzs, ks)
-    assert bound["operations"] == 2 * pairs + 3 * slots
-    assert bound["bytes"] == 4 * (b * n * c + 4 * b * sum(r.shape[1] for r in refs)
-                                  + slots * c)
+    t_pts, t_refs = torch.from_numpy(pts), [torch.from_numpy(r) for r in refs]
+    bound = kernel_bound("group_depth_point_multi", t_pts, t_refs, dzs, ks)
+    assert bound["operations"] == 2 * hits + 3 * slots
+    assert bound["bytes"] == 4 * (b * n * c + 4 * b * m + slots * c)
+    select = kernel_bound("query_depth_point", t_pts, t_refs, dzs, ks)
+    assert select["operations"] == 2 * hits
+    assert select["bytes"] == 4 * (b * n + 2 * b * m + slots)
+
+
+def test_kernel_bound_flagship_b256():
+    """At the flagship B=256, kernels 1 and 2 are bound by their bytes even
+    if every (section, point) pair were tested (so the count of tested pairs
+    never set their bound, and charging selected hits leaves it as it was);
+    kernel 3 is bound by bytes at 10.8 MB (scale 1) and 5.7 MB (scale 4)."""
+    from frustum_convnet_tpu_torch.configs import (get_default_cfg, get_model_spec,
+                                                   merge_cfg_from_file)
+    from frustum_convnet_tpu_torch.tools.time_grouping import (FP32_OPS_PER_S,
+                                                               HBM_BYTES_PER_S,
+                                                               kernel_bound)
+
+    cfg = get_default_cfg()
+    merge_cfg_from_file(os.path.join(ROOT, "cfgs", "det_sample.yaml"), cfg)
+    pts, refs, dzs, ks = grouping_cases.flagship_case(get_model_spec(cfg), batch=256)
+    t_pts, t_refs = torch.from_numpy(pts), [torch.from_numpy(r) for r in refs]
+    b, n, _ = pts.shape
+    got = {}
+    for name, scales in (("group_depth_point_multi", [0, 1, 2, 3]),
+                         ("group_depth_point", [0]), ("group_depth_point", [3]),
+                         ("query_depth_point", [0]), ("query_depth_point", [3])):
+        rs = [t_refs[i] for i in scales]
+        bound = kernel_bound(name, t_pts, rs, [dzs[i] for i in scales],
+                             [ks[i] for i in scales])
+        assert bound["bound_by"] == "bytes"
+        assert bound["bound_ms"] == bound["bytes"] / HBM_BYTES_PER_S * 1e3
+        if name != "query_depth_point":
+            brute = sum(2 * b * r.shape[1] * n + 3 * b * r.shape[1] * k
+                        for r, k in zip(rs, [ks[i] for i in scales]))
+            assert brute / FP32_OPS_PER_S < bound["bytes"] / HBM_BYTES_PER_S
+        got[(name, scales[-1])] = round(bound["bound_ms"], 4)
+    assert got == {("group_depth_point_multi", 3): 0.0262,
+                   ("group_depth_point", 0): 0.0095, ("group_depth_point", 3): 0.0051,
+                   ("query_depth_point", 0): 0.0032, ("query_depth_point", 3): 0.0017}
+
+
+SELECT_CASES = grouping_cases.select_cases()
+
+
+@pytest.mark.parametrize("name", sorted(SELECT_CASES))
+def test_select_cases_match_jax_kernel_and_oracle(name):
+    """The select's plain version on the prefilter's hard inputs (NaN and
+    +-inf, equal and ulp-apart depths, windows on bin edges, unaligned
+    spans, a clustered row) against the Pallas ``query_depth_point_pallas``
+    in interpret mode and the numpy oracle, bit for bit."""
+    zp, zr, d, k = SELECT_CASES[name]
+    idx, cnt = qdp.query_depth_point(torch.from_numpy(zp), torch.from_numpy(zr), d, k)
+    ij, cj = query_depth_point_pallas(zp, zr, d, k, interpret=True)
+    with np.errstate(invalid="ignore"):  # inf - inf
+        io, co = query_depth_point_np(zp, zr, d, k)
+    assert idx.shape == (*zr.shape, k) and idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(idx.numpy(), io)
+    np.testing.assert_array_equal(cnt.numpy(), co)
+
+
+def _assert_candidates_hold_hits(zp, zr, d):
+    zp, zr = torch.as_tensor(zp), torch.as_tensor(zr)
+    cand = select_cuda.depth_bin_candidates(zp, zr, d)
+    hits = (zp[:, None, :] - zr[:, :, None]).abs() < d
+    assert cand.shape == hits.shape
+    missed = hits & ~cand
+    assert not missed.any(), f"{int(missed.sum())} hits outside the candidates"
+    return cand, hits
+
+
+@pytest.mark.parametrize("name", sorted(SELECT_CASES) + sorted(CASES))
+def test_depth_bin_candidates_hold_every_hit(name):
+    """The mirror of the select kernel's prefilter keeps every hit, on every
+    select case and on every scale of every grouping case."""
+    if name in SELECT_CASES:
+        zp, zr, d, _ = SELECT_CASES[name]
+        _assert_candidates_hold_hits(zp, zr, d)
+    else:
+        pts, refs, dzs, _ = CASES[name]
+        for r, d in zip(refs, dzs):
+            _assert_candidates_hold_hits(pts[..., 2].copy(), r[..., 2].copy(), d)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "non_finite", "narrow"])
+def test_depth_bin_candidates_hold_every_hit_on_random_rows(kind):
+    """50 seeded random rows of each kind (200 in all), with random N,
+    centers (some outside the depths' range) and windows."""
+    rng = np.random.default_rng(["uniform", "clustered", "non_finite", "narrow"].index(kind))
+    for _ in range(50):
+        n = int(rng.integers(1, 1200))
+        lo, hi = sorted(rng.uniform(-100, 100, 2))
+        zp = rng.uniform(lo, hi, (1, n)).astype(np.float32)
+        if kind == "narrow":  # a row a few ulps wide
+            base = np.float32(lo)
+            zp = (base + rng.integers(-20, 21, (1, n)) * rng.integers(0, 3)
+                  * np.spacing(base)).astype(np.float32)
+        if kind == "clustered":
+            c = rng.uniform(lo, hi)
+            zp[0, rng.random(n) < 0.8] = c + rng.normal(0, 0.05 * (hi - lo) + 1e-6)
+        if kind == "non_finite":
+            bad = rng.random(n) < rng.uniform(0, 1)
+            zp[0, bad] = rng.choice([np.nan, np.inf, -np.inf], int(bad.sum()))
+        zr = rng.uniform(lo - 5, hi + 5, (1, 64)).astype(np.float32)
+        zr[0, :8] = rng.choice(zp[0], 8)  # centers on point depths
+        d = float(np.float32(10.0 ** rng.uniform(-7, 2)))
+        _assert_candidates_hold_hits(zp, zr, d)
+
+
+def test_depth_bin_prefilter_cuts_the_flagship_scan():
+    """On the flagship grouping input (B=64), with 256 bins a section of
+    scale 1 has about 19 candidates of 1024 points (about 7 hits), and of
+    scale 4 about 70 (about 58 hits); the candidates hold every hit."""
+    from frustum_convnet_tpu_torch.configs import (get_default_cfg, get_model_spec,
+                                                   merge_cfg_from_file)
+
+    cfg = get_default_cfg()
+    merge_cfg_from_file(os.path.join(ROOT, "cfgs", "det_sample.yaml"), cfg)
+    pts, refs, dzs, _ = grouping_cases.flagship_case(get_model_spec(cfg), batch=64)
+    assert select_cuda.depth_bins(pts.shape[1]) == 256
+    for i, (low, high) in ((0, (15, 25)), (3, (60, 80))):
+        cand, hits = _assert_candidates_hold_hits(pts[..., 2].copy(), refs[i][..., 2].copy(),
+                                                  dzs[i])
+        assert low < cand.sum(-1).float().mean() < high
+        assert cand.sum() < 0.1 * cand.numel()
+
+
+@pytest.mark.parametrize("n,words,bins", [(1, 32, 256), (201, 32, 256), (1024, 32, 256),
+                                          (2048, 64, 128), (4096, 128, 64),
+                                          (16384, 512, 16), (300000, 9376, 1)])
+def test_depth_bins_fit_their_shared_memory(n, words, bins):
+    assert select_cuda.bitmap_words(n) == words
+    assert select_cuda.depth_bins(n) == bins
+    assert bins * words * 4 <= 32 * 1024 or bins == 1
+
+
+@pytest.mark.parametrize("batch,m,launch", [(256, 280, (1, 16)), (132, 35, (1, 16)),
+                                            (64, 280, (5, 8)), (32, 280, (9, 8)),
+                                            (1, 140, (16, 8)), (8, 2, (2, 8))])
+def test_select_launch_shape(batch, m, launch):
+    """One 16-warp block a row once the batch fills the card's 132 SMs, else
+    the grouping's tile count in blocks of 8 warps."""
+    assert select_cuda.select_launch(batch, m, sms=132) == launch
 
 
 def test_pointnet_scale_groups_for_itself_like_flax():

@@ -95,6 +95,39 @@ def test_single_scale_and_select_kernels_flagship_shapes(cuda):
     assert [c.launches for c in counters] == [b + 4 for b in before]
 
 
+SELECT_CASES = grouping_cases.select_cases()
+
+
+def _check_select(zp, zr, d, k, device):
+    z_points, z_ref = torch.as_tensor(zp).to(device), torch.as_tensor(zr).to(device)
+    idx, cnt = select_cuda.query_depth_point_cuda(z_points, z_ref, d, k)
+    idx0, cnt0 = query_depth_point(z_points, z_ref, d, k)
+    torch.cuda.synchronize()
+    assert idx.shape == idx0.shape and idx.dtype == torch.int32
+    assert torch.equal(idx, idx0) and torch.equal(cnt, cnt0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SELECT_CASES))
+def test_select_kernel_matches_plain_on_select_cases(cuda, name):
+    """Kernel 3 on the inputs that stress its depth-bin prefilter: NaN and
+    +-inf, equal and ulp-apart depths, windows on bin edges, unaligned
+    spans, a clustered row."""
+    _check_select(*SELECT_CASES[name], cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [32, 256])
+def test_select_kernel_flagship_scales(cuda, batch):
+    """Kernel 3 on all four flagship scales at the profiler's B=32 and the
+    timed B=256 (3 and 9 tiles a row)."""
+    cfg = get_default_cfg()
+    merge_cfg_from_file("cfgs/det_sample.yaml", cfg)
+    pts, refs, dzs, ks = grouping_cases.flagship_case(get_model_spec(cfg), batch=batch)
+    for ref, d, k in zip(refs, dzs, ks):
+        _check_select(pts[..., 2].copy(), ref[..., 2].copy(), d, k, cuda)
+
+
 @pytest.mark.cuda
 def test_kernel_flagship_shapes(cuda):
     cfg = get_default_cfg()
@@ -194,3 +227,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="staged span"):
         select_cuda.group_depth_point_multi_cuda(
             big, [torch.zeros((1, 2, 3), device=cuda)], [1.0], [8])
+    # 40000 depths and their 6 bitmaps fit, one span of K=16384 indices does not
+    with pytest.raises(ValueError, match="shared memory"):
+        select_cuda.query_depth_point_cuda(torch.zeros((1, 40000), device=cuda),
+                                           z_ref[:1], 1.0, 16384)
