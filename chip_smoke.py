@@ -49,22 +49,53 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    a kernel-1 launch on every train and eval step, the checkpoints (the
    final one reloads strictly into a fresh model with a bit-identical eval
    forward) and a resume at epoch 2; prints the steady train ms/step and
-   frustums/s.
+   frustums/s;
+10. refine cascade (``scripts/car_all.sh`` after stage-1 training): a
+    synthetic raw KITTI (``data/kitti/synthetic``, 384 frames of 4 cars),
+    the port's ``data.kitti.prepare`` CLI (``--car_only --gen_train
+    --gen_val --gen_val_rgb_detection``), stage-1 serving through
+    ``engine.test.main`` with phase 9's ``model_final.pth``, the
+    ``data.kitti.prepare_refine`` CLI on those result files, then
+    ``cfgs/refine_car.yaml`` at full width (N=512, 64/32/16/8 sections whose
+    tails repeat the last one) trained 2 epochs at batch 32 through
+    ``engine.train.main`` and served through ``engine.test.main``; checks
+    finite losses, a result file for every val id, the evaluator's AP and a
+    kernel-1 launch on every forward; prints the refine train ms/step and
+    the serving frustums/s;
+11. SUN-RGBD: synthetic scenes (``data/sunrgbd/synthetic``, 384 frames of 4
+    objects), the port's ``data.sunrgbd.prepare`` CLI (train, val and
+    rgb-detection pickles), ``cfgs/det_sample_sunrgbd.yaml`` at full width
+    (N=2048, 5 scales, K up to 256) trained 2 epochs at batch 32 and served
+    through ``engine.test_sunrgbd.main`` ('top'); checks
+    ``sunrgbd_ap.json`` and finite APs, one detection for each frustum
+    that survives the degenerate-size filter, and the kernel-1 launches;
+    prints the train ms/step and the serving frustums/s;
+12. families: for refine car, refine people, people and SUN-RGBD, kernel 1
+    bit for bit against its plain version on a B=32 batch of the family's
+    provider (``ops/grouping_cases.family_datasets``), timed alone
+    (``torch.profiler``) beside its bound and the plain version's time, and
+    the family's forward at batch 8 on the card against the CPU (TF32 off,
+    atol/rtol 1e-4).
 
-The splits are written here from seeded numpy, with one car generator: the
-val split in the reference's 7-stream rgb-detection pickle layout (id,
-box2d, points, type, frustum_angle, prob, calib), with KITTI ``label_2``
-ground truth and ``image_sets/val.txt``; the train and labeled val splits
-in the 11-stream labeled layout (id, box2d, box3d, points, seg, type,
-heading, size, frustum_angle, gt_box2d, calib). The drivers read them like
-any other split.
+The splits of phases 4-9 are written here from seeded numpy, with one car
+generator: the val split in the reference's 7-stream rgb-detection pickle
+layout (id, box2d, points, type, frustum_angle, prob, calib), with KITTI
+``label_2`` ground truth and ``image_sets/val.txt``; the train and labeled
+val splits in the 11-stream labeled layout (id, box2d, box3d, points, seg,
+type, heading, size, frustum_angle, gt_box2d, calib). The drivers read them
+like any other split. Phases 10-12 write raw synthetic KITTI and SUN-RGBD
+with the port's generators and run the port's prep on them.
 
 Each kernel's ``launches`` in the kernels record is counted over one main
 path, with the counts set to 0 just before it: kernel 1 over the trainer's
 run (phase 9), kernels 2 and 3 over the profiler's (phase 7).
-``main_path_launches`` adds each kernel's launches in the serving and
-training runs (phases 5 and 9), where only kernel 1 runs. Launches that
-compare a kernel with its plain version are not counted. ``bound_ms`` is
+``path_launches`` gives each kernel's launches on every driver path, each
+counted the same way: serving and training (phases 5 and 9), the refine
+cascade's stage-1 serving, training and serving (phase 10), and SUN-RGBD
+training and serving (phase 11); only kernel 1 runs there.
+``main_path_launches`` is their sum. Kernel 1's ``family_shapes`` holds its
+phase-12 numbers. Launches that compare a kernel with its plain version are
+not counted. ``bound_ms`` is
 the least time the card could take for the timed call (its bytes over the
 HBM rate or its float32 operations over the float32 instruction rate,
 whichever is larger); ``library_ms`` is null: no single PyTorch call computes this select.
@@ -119,11 +150,12 @@ def _in_turns(kernel, plain, kernel_iters: int = 50, plain_iters: int = 10):
     return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
 
 
-def flagship_cfg(data_root: str | None = None):
+def flagship_cfg(data_root: str | None = None, cfg_file: str = "det_sample.yaml"):
+    """``cfgs/<cfg_file>`` (the flagship's by default), reading ``data_root``."""
     from frustum_convnet_tpu_torch import configs
 
     cfg = configs.get_default_cfg()
-    configs.merge_cfg_from_file(os.path.join(ROOT, "cfgs", "det_sample.yaml"), cfg)
+    configs.merge_cfg_from_file(os.path.join(ROOT, "cfgs", cfg_file), cfg)
     if data_root:
         configs.merge_cfg_from_list(["DATA.DATA_ROOT", data_root], cfg)
     return cfg
@@ -529,8 +561,8 @@ def fit_cls_head(spec, model, dataset, fg_labels: np.ndarray, device,
           f"{(fg & labels).sum().item() / labels.sum().item():.3f}")
 
 
-def phase_model(spec, device, model, dataset) -> None:
-    """Flagship forward at batch 8: card against the port on the CPU."""
+def phase_model(spec, device, model, dataset, tag: str = "model") -> None:
+    """Forward at batch 8 of ``dataset``: card against the port on the CPU."""
     inputs = split_batch(dataset, range(8), spec.num_scales)
     with torch.no_grad():
         cpu = model(*inputs)
@@ -541,9 +573,9 @@ def phase_model(spec, device, model, dataset) -> None:
     for name, c, g in zip(("cls_logits", "reg"), cpu, gpu):
         g = g.cpu()
         if c.shape != g.shape or not torch.isfinite(g).all():
-            raise AssertionError(f"{name}: shape {tuple(g.shape)} or non-finite")
+            raise AssertionError(f"[{tag}] {name}: shape {tuple(g.shape)} or non-finite")
         torch.testing.assert_close(g, c, **MODEL_TOL)
-        print(f"[model] {name} {tuple(g.shape)}: card vs CPU max abs diff "
+        print(f"[{tag}] {name} {tuple(g.shape)}: card vs CPU max abs diff "
               f"{(g - c).abs().max().item():.3e} (atol/rtol 1e-4)")
 
 
@@ -779,7 +811,232 @@ def phase_trainer(spec, device, work: str, pickle_dir: str) -> dict:
     print(f"[trainer] steady epoch (epoch 1): {steady['ms_per_step']:.3f} ms/step, "
           f"{steady['frustums_per_s']:.1f} frustums/s over {steady['seconds']:.3f}s "
           f"(CUDA events); epoch 0 {res['epochs'][0]['ms_per_step']:.3f} ms/step")
-    return {"counts": counts, "steady": steady}
+    return {"counts": counts, "steady": steady, "final": paths["final"]}
+
+
+def _train_family(tag: str, cfg_file: str, args: list, val_ds) -> dict:
+    """``engine.train.main`` for 2 epochs at batch 32 on the card; checks
+    finite logged losses, a kernel-1 launch on every train and eval step
+    and ``model_final.pth``. Returns its launches, the steady epoch's stats
+    and the checkpoint."""
+    import math
+
+    from frustum_convnet_tpu_torch.engine import checkpoints
+    from frustum_convnet_tpu_torch.engine import train as trainer
+
+    out_dir = args[args.index("OUTPUT_DIR") + 1]
+    _reset_counts()
+    res = trainer.main(["--cfg", os.path.join(ROOT, "cfgs", cfg_file), "--device", "cuda"]
+                       + args + ["TRAIN.BATCH_SIZE", "32", "TEST.BATCH_SIZE", "32",
+                                 "TRAIN.MAX_EPOCH", "2", "disp", "4",
+                                 "USE_TFBOARD", "False"])
+    launches = _counts()["group_depth_point_multi"]
+    steps = [e["steps"] for e in res["epochs"]]
+    evals = 2 * math.ceil(len(val_ds) / 32)
+    if len(steps) != 2 or min(steps) < 4:
+        raise AssertionError(f"[{tag}] expected 2 epochs of several steps: {res['epochs']}")
+    if launches < sum(steps) + evals:
+        raise AssertionError(f"[{tag}] {launches} kernel launches for {sum(steps)} "
+                             f"train and {evals} eval steps")
+    losses = _logged_losses(os.path.join(out_dir, "train.log"))
+    if len(losses) < 16 or not np.isfinite(losses).all():
+        raise AssertionError(f"[{tag}] logged losses missing or non-finite: {losses[:16]}")
+    final = checkpoints.checkpoint_paths(out_dir)["final"]
+    if not os.path.exists(final):
+        raise AssertionError(f"[{tag}] {final} was not written")
+    steady = res["epochs"][1]
+    print(f"[{tag}] trainer: 2 epochs of {steps[0]} steps at batch 32 and {evals} "
+          f"eval batches: {launches} kernel launches, {len(losses)} logged losses, "
+          f"all finite; best {res['best_prec']:.4f} at epoch {res['best_epoch']}")
+    print(f"[{tag}] trainer steady epoch (epoch 1): {steady['ms_per_step']:.3f} ms/step, "
+          f"{steady['frustums_per_s']:.1f} frustums/s over {steady['seconds']:.3f}s "
+          f"(CUDA events); epoch 0 {res['epochs'][0]['ms_per_step']:.3f} ms/step")
+    return {"launches": launches, "steady": steady, "final": final}
+
+
+def _serve_kitti(tag: str, cfg_file: str, raw: str, args: list, group: int = 2) -> dict:
+    """``engine.test.main`` on the card over a synthetic KITTI val split:
+    checks a result file for every val id, finite values, detections, the
+    evaluator's car AP and one kernel-1 launch for every forward."""
+    from frustum_convnet_tpu_torch.engine import test as driver
+
+    idx_path = os.path.join(raw, "image_sets", "val.txt")
+    _reset_counts()
+    out = driver.main(["--cfg", os.path.join(ROOT, "cfgs", cfg_file), "--device", "cuda",
+                       "--gt_dir", os.path.join(raw, "training", "label_2"),
+                       "--idx_path", idx_path] + args
+                      + ["TEST.BATCH_SIZE", "32", "TPU.INFER_GROUP", str(group)])
+    launches = _counts()["group_depth_point_multi"]
+    stats = out["stats"]
+    n_batches = -(-stats["frustums"] // 32)
+    forwards = n_batches // group + n_batches % group + stats["overflow_reruns"]
+    with open(idx_path) as f:
+        n_ids = sum(1 for line in f if line.strip())
+    files = sorted(os.listdir(out["result_dir"]))
+    values = []
+    for name in files:
+        with open(os.path.join(out["result_dir"], name)) as f:
+            values += [[float(v) for v in line.split()[3:]] for line in f if line.strip()]
+    if len(files) != n_ids or not values or not np.isfinite(np.asarray(values)).all():
+        raise AssertionError(f"[{tag}] {len(files)} result files for {n_ids} ids, "
+                             f"{len(values)} finite detections expected")
+    ap = out["ap"]
+    if not ap or "car" not in ap or not np.isfinite(np.asarray(ap["car"]["detection_3d"])).all():
+        raise AssertionError(f"[{tag}] the evaluator returned {ap!r}")
+    if launches != forwards:
+        raise AssertionError(f"[{tag}] {launches} kernel launches for {forwards} forwards")
+    print(f"[{tag}] serving: {stats['frustums']} frustums in {n_batches} batches of 32, "
+          f"groups of {group}: {launches} kernel launches (one a forward), "
+          f"{stats['sections']} foreground sections, {stats['detections']} detections, "
+          f"{len(values)} after NMS in {len(files)} files; car AP 3D "
+          f"{ap['car']['detection_3d']}")
+    print(f"[{tag}] serving: end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
+          f"{stats['seconds']:.2f}s; steady-state {stats['steady_frustums_per_s']} frustums/s")
+    return {"launches": launches, "stats": stats, "result_dir": out["result_dir"]}
+
+
+def phase_refine(work: str, stage1_weights: str, num_frames: int = 64) -> dict:
+    """The KITTI refine cascade through the port's CLIs on the card
+    (``scripts/car_all.sh`` after stage-1 training, which phase 9 did):
+    a synthetic raw KITTI, the stage-1 prep, stage-1 serving with phase 9's
+    weights, the refine prep on its results, then ``cfgs/refine_car.yaml``
+    trained at full width and served. Returns kernel-1 launches a path."""
+    from frustum_convnet_tpu_torch.data.kitti import prepare, prepare_refine
+    from frustum_convnet_tpu_torch.data.kitti.synthetic import make_synthetic_kitti
+    from frustum_convnet_tpu_torch.data.provider_refine import FrustumRefineProvider
+
+    t0 = time.time()
+    raw = os.path.join(work, "kitti")
+    make_synthetic_kitti(raw, num_frames=num_frames, cars_per_frame=4, seed=SMOKE_SEED)
+    stage1_pickles = os.path.join(work, "stage1_pickles")
+    prepare.main(["--car_only", "--gen_train", "--gen_val", "--gen_val_rgb_detection",
+                  "--data_root", raw, "--rgb_det_dir", os.path.join(raw, "rgb_detections"),
+                  "--save_dir", stage1_pickles])
+    print(f"[refine] synthetic KITTI of {num_frames} frames and the stage-1 prep in "
+          f"{time.time() - t0:.1f}s")
+    stage1_out = os.path.join(work, "car_train")
+    stage1 = _serve_kitti("refine stage 1", "det_sample.yaml", raw, [
+        "DATA.DATA_ROOT", stage1_pickles, "OUTPUT_DIR", stage1_out,
+        "TEST.WEIGHTS", stage1_weights])
+
+    refine_pickles = os.path.join(work, "refine_pickles")
+    prepare_refine.main(["--car_only", "--gen_train", "--gen_val", "--gen_val_rgb_detection",
+                         "--data_root", raw, "--save_dir", refine_pickles,
+                         "--val_res_dir", stage1["result_dir"]])
+    refine_out = os.path.join(work, "car_train_refine")
+    args = ["DATA.DATA_ROOT", refine_pickles, "OUTPUT_DIR", refine_out]
+    cfg = flagship_cfg(refine_pickles, "refine_car.yaml")
+    rgb = FrustumRefineProvider(cfg, "val", from_rgb_detection=True)
+    if len(rgb) < num_frames:  # the val frames hold 2 * num_frames cars
+        raise AssertionError(f"the refine prep cut {len(rgb)} frustums from the stage-1 "
+                             "results")
+    train = _train_family("refine", "refine_car.yaml", args,
+                          FrustumRefineProvider(cfg, "val"))
+    serve = _serve_kitti("refine", "refine_car.yaml", raw,
+                         args + ["TEST.WEIGHTS", train["final"]])
+    return {"refine_stage1_serving": stage1["launches"],
+            "refine_training": train["launches"], "refine_serving": serve["launches"]}
+
+
+def phase_sunrgbd(work: str, num_frames: int = 64) -> dict:
+    """SUN-RGBD through the port's CLIs on the card: synthetic scenes, the
+    prep, ``cfgs/det_sample_sunrgbd.yaml`` trained at full width (N=2048, 5
+    scales, K up to 256) and served by ``engine.test_sunrgbd`` ('top': one
+    detection a frustum that survives the degenerate-size filter), then VOC
+    AP. Returns kernel-1 launches a path."""
+    from frustum_convnet_tpu_torch.data.provider_sunrgbd import FrustumSunrgbdProvider
+    from frustum_convnet_tpu_torch.data.sunrgbd import prepare
+    from frustum_convnet_tpu_torch.data.sunrgbd.synthetic import make_synthetic_sunrgbd
+    from frustum_convnet_tpu_torch.engine import test_sunrgbd
+
+    t0 = time.time()
+    raw = os.path.join(work, "mysunrgbd")
+    make_synthetic_sunrgbd(raw, num_frames=num_frames, objects_per_frame=4, seed=SMOKE_SEED)
+    pickles = os.path.join(work, "sun_pickles")
+    sets = os.path.join(raw, "image_sets")
+    prepare.main(["--gen_train", "--gen_val", "--gen_val_rgb_detection", "--sunrgbd_dir", raw,
+                  "--save_dir", pickles, "--train_idx", os.path.join(sets, "train.txt"),
+                  "--val_idx", os.path.join(sets, "val.txt"),
+                  "--det_file", os.path.join(raw, "det_val.txt")])
+    print(f"[sunrgbd] synthetic scenes of {num_frames} frames and the prep in "
+          f"{time.time() - t0:.1f}s")
+    rgb_det = os.path.join(pickles, "sunrgbd_rgb_det_val.pickle")
+    out_dir = os.path.join(work, "sunrgbd_train")
+    args = ["DATA.DATA_ROOT", pickles, "OUTPUT_DIR", out_dir, "OVER_WRITE_TEST_FILE", rgb_det]
+    cfg = flagship_cfg(pickles, "det_sample_sunrgbd.yaml")
+    train = _train_family("sunrgbd", "det_sample_sunrgbd.yaml", args,
+                          FrustumSunrgbdProvider(cfg, "val"))
+
+    group = 2
+    _reset_counts()
+    out = test_sunrgbd.main(["--cfg", os.path.join(ROOT, "cfgs", "det_sample_sunrgbd.yaml"),
+                             "--device", "cuda", "--sunrgbd_dir", raw,
+                             "--val_idx", os.path.join(sets, "val.txt")] + args
+                            + ["TEST.WEIGHTS", train["final"], "TEST.BATCH_SIZE", "32",
+                               "TPU.INFER_GROUP", str(group)])
+    launches = _counts()["group_depth_point_multi"]
+    stats, aps = out["stats"], out["ap"]
+    n_batches = -(-stats["frustums"] // 32)
+    forwards = -(-n_batches // group)  # the tail group is padded to a full one
+    with open(os.path.join(out["result_dir"], "sunrgbd_ap.json")) as f:
+        written = json.load(f)
+    if not aps or written["ap"] != aps or not np.isfinite(list(aps.values())).all():
+        raise AssertionError(f"[sunrgbd] APs {aps!r}, sunrgbd_ap.json {written!r}")
+    if not (stats["sections"] == stats["frustums"] > 0
+            and stats["detections"] + stats["degenerate"] == stats["frustums"]):
+        raise AssertionError(f"[sunrgbd] 'top' should give one detection a frustum "
+                             f"that survives the size filter: {stats}")
+    if launches != forwards:
+        raise AssertionError(f"[sunrgbd] {launches} kernel launches for {forwards} forwards")
+    print(f"[sunrgbd] serving ('top'): {stats['frustums']} frustums, groups of {group} "
+          f"batches of 32: {launches} kernel launches (one a forward); "
+          f"{stats['detections']} detections, {stats['degenerate']} degenerate; "
+          f"mAP {written['mAP']:.4f} over {len(aps)} classes; sunrgbd_ap.json written")
+    print(f"[sunrgbd] serving: end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
+          f"{stats['seconds']:.2f}s; steady-state {stats['steady_frustums_per_s']} frustums/s")
+    return {"sunrgbd_training": train["launches"], "sunrgbd_serving": launches}
+
+
+def phase_families(device, work: str) -> dict:
+    """Kernel 1 at each other family's shapes, on B=32 batches of its
+    provider (``grouping_cases.family_datasets``): bit for bit against its
+    plain version (grouped and cnt), timed alone (``torch.profiler``) beside
+    its bound and the plain version's time; and each family's forward at
+    batch 8, card against CPU. Returns {family: numbers}."""
+    from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
+    from frustum_convnet_tpu_torch.ops.query_depth_point import group_depth_point_multi
+    from frustum_convnet_tpu_torch.tools.time_grouping import (KERNEL_NAMES, alone_ms,
+                                                               cuda_time_ms, kernel_bound)
+
+    families = grouping_cases.family_datasets(os.path.join(ROOT, "cfgs"),
+                                              os.path.join(work, "families"))
+    out = {}
+    for family, (spec, dataset) in families.items():
+        pts, refs, dzs, ks = grouping_cases.provider_case(spec, dataset, 32, seed=SMOKE_SEED)
+        t_pts = torch.from_numpy(pts).to(device)
+        t_refs = [torch.from_numpy(r).to(device) for r in refs]
+        got = select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks)
+        want = group_depth_point_multi(t_pts, t_refs, dzs, ks)
+        torch.cuda.synchronize()
+        err = 0.0
+        for (g, c), (g0, c0) in zip(got, want):
+            if g.shape != g0.shape or not torch.equal(c, c0) or not torch.equal(g, g0):
+                raise AssertionError(f"[families] kernel 1 != plain version on {family}")
+            err = max(err, (g - g0).abs().max().item())
+        kernel = lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks)
+        alone = alone_ms(kernel, KERNEL_NAMES["group_depth_point_multi"])
+        plain_ms = cuda_time_ms(lambda: group_depth_point_multi(t_pts, t_refs, dzs, ks), 10)
+        bound = kernel_bound("group_depth_point_multi", t_pts, t_refs, dzs, ks)
+        out[family] = {"max_abs_err": err, "alone_ms": alone, "plain_ms": plain_ms,
+                       "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+                       "share": bound["bound_ms"] / alone}
+        print(f"[families] {family} B=32 (N={spec.num_points}, M="
+              f"{'/'.join(map(str, spec.num_refs))}, K={'/'.join(map(str, ks))}): kernel 1 "
+              f"bit-identical to its plain version; alone {alone:.4f} ms, plain "
+              f"{plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
+              f"{bound['bytes'] / 1e6:.2f} MB), share {bound['bound_ms'] / alone:.1%}")
+        phase_model(spec, device, seeded_model(spec), dataset, tag=f"families] [{family}")
+    return out
 
 
 def main() -> int:
@@ -843,24 +1100,36 @@ def main() -> int:
         phase_train_step(spec, device, seeded_model(spec), train_ds)
         # 9. the trainer, through its CLI entry point
         train = phase_trainer(spec, device, work, train_dir)
+        # 10. the refine cascade, through the CLIs, from phase 9's weights
+        refine = phase_refine(work, train["final"], num_frames=384)
+        # 11. SUN-RGBD, through the CLIs
+        sunrgbd = phase_sunrgbd(work, num_frames=384)
+        # 12. kernel 1 and the forward at the other families' shapes
+        families = phase_families(device, work)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
+    # each path's launches, counted from 0 just before it and read just after;
+    # only kernel 1 runs on the drivers' paths
+    paths = {"serving": serve_counts, "training": train["counts"]}
+    paths.update({k: {"group_depth_point_multi": v} for k, v in {**refine, **sunrgbd}.items()})
     records = []
     for name, launches, numbers in (
             ("group_depth_point_multi", train["counts"]["group_depth_point_multi"],
-             kernel),
+             {**kernel, "family_shapes": families}),
             ("group_depth_point", prof_launches["group_depth_point"],
              modes["group_depth_point"]),
             ("query_depth_point", prof_launches["query_depth_point"],
              modes["query_depth_point"])):
+        per_path = {p: c.get(name, 0) for p, c in paths.items()}
         records.append({"name": name, "route": "cuda",
                         "source": select_cuda.KERNEL_SOURCE,
                         "replaces": select_cuda.REPLACES[name],
                         "launches": launches, **numbers, "library_ms": None,
-                        "main_path_launches": serve_counts[name] + train["counts"][name]})
+                        "main_path_launches": sum(per_path.values()),
+                        "path_launches": per_path})
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,14 @@ The JAX package is the reference; this package mirrors its module layout
 and imports nothing of it. The modules that needed jax are rewritten in
 PyTorch (``core/{codecs,geometry,iou}``, ``ops/query_depth_point``,
 ``models/{net,det,losses}``, ``parallel/train_step``,
-``engine/{train,test,checkpoints}``, ``tools/profile_stages``). The jax-free
-ones are copied under the same relative paths, with only their imports
-pointed at this package: ``configs/{config,attrdict}``, ``core/{geometry_np,
-iou_np,nms}``, ``data/{dataset_info,pickle_io,provider,fixtures,registry}``,
-``engine/loader``, ``evaluation/{kitti_writer,kitti_eval,plots}``,
+``engine/{train,test,test_sunrgbd,checkpoints}``, ``tools/profile_stages``).
+The jax-free ones are copied under the same relative paths, with only their
+imports pointed at this package: ``configs/{config,attrdict}``,
+``core/{geometry_np,iou_np,nms,box_overlaps}``, ``data/{dataset_info,
+pickle_io,prep_util,provider,provider_refine,provider_sunrgbd,fixtures,
+registry}``, ``data/kitti/{calib,object,synthetic,prepare,prepare_refine}``,
+``data/sunrgbd/{calib,object,synthetic,prepare,ingest}``, ``engine/loader``,
+``evaluation/{kitti_writer,kitti_eval,plots,sunrgbd_eval}``,
 ``models/{spec,registry}``, ``ops/native`` and ``utils/{logger,tfevents,
 metrics}``. ``ops/native`` builds the repository's host C++ library and
 evaluator (``native/``, ``make -C native`` into ``native/build/``) at first

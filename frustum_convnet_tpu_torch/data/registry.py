@@ -14,7 +14,10 @@ def get_provider_class(cfg):
     if name == "provider_sample":
         from frustum_convnet_tpu_torch.data.provider import FrustumProvider
         return FrustumProvider
-    if name in ("provider_sample_refine", "provider_sample_sunrgbd"):
-        raise NotImplementedError(
-            f"provider '{name}' is not ported yet (ROADMAP queue 1, item 10)")
+    if name == "provider_sample_refine":
+        from frustum_convnet_tpu_torch.data.provider_refine import FrustumRefineProvider
+        return FrustumRefineProvider
+    if name == "provider_sample_sunrgbd":
+        from frustum_convnet_tpu_torch.data.provider_sunrgbd import FrustumSunrgbdProvider
+        return FrustumSunrgbdProvider
     raise KeyError(f"Unknown provider '{name}'")

@@ -5,7 +5,10 @@ The edge cases mirror ``tests/test_select_pallas.py`` (single-scale oracle
 shapes, unsorted and duplicated ladders, empty and overflow sections,
 duplicate depths, N not a power of two, multi-scale ladders, K=256 with
 C=6), and unaligned section spans and rows (``odd_spans_n201``);
-``flagship_case`` is the model's own grouping input. Every case is
+``flagship_case`` is the model's own grouping input (the flagship, people
+and SUN-RGBD specs), ``refine_case`` the refine stage's, and
+``provider_case`` a batch of a family's provider (``family_datasets``,
+over synthetic splits that the port's prep writes). Every case is
 ``(points (B, N, C) f32, [refs (B, M_i, 3) f32], dis_zs, nsamples)``.
 """
 
@@ -155,9 +158,117 @@ def select_cases(seed: int = 4) -> dict:
 
 def flagship_case(spec, batch: int, seed: int = 0):
     """The model's grouping input at ``spec``'s shapes: synthetic frustums
-    from ``data/fixtures.make_batch`` with the config's section ladders."""
+    from ``data/fixtures.make_batch`` with the config's section ladders.
+    With the SUN-RGBD spec this is the 5-scale case (N=2048, 80/40/20/10/5
+    sections, K up to 256); with the people spec 700/350/175/88 sections."""
     b = make_batch(spec, batch=batch, seed=seed, with_labels=False)
     pts = b["point_cloud"]
     if not spec.use_extra_feature:
         pts = np.ascontiguousarray(pts[..., :3])
     return pts, list(b["refs"]), list(spec.height_half), list(spec.nsamples)
+
+
+def refine_case(spec, batch: int, seed: int = 0):
+    """The refine stage's grouping input at a refine ``spec``'s shapes (N=512,
+    a fixed ladder of ``spec.num_refs`` sections a scale): seeded predicted
+    boxes in their own frame (the provider's rotate-to-center), their
+    ladders from ``FrustumRefineProvider.generate_ref``, which repeats the
+    last section to fill the fixed count, and points in and around the box.
+    Row 0's box has no extent, so its ladders are all zeros (the provider's
+    ``n == 0`` branch)."""
+    import warnings
+    from types import SimpleNamespace
+
+    from frustum_convnet_tpu_torch.core import geometry_np as gnp
+    from frustum_convnet_tpu_torch.data.provider_refine import FrustumRefineProvider
+
+    rng = np.random.default_rng(seed)
+    ladder = SimpleNamespace(strides=list(spec.strides), num_refs=list(spec.num_refs))
+    mean = spec.mean_size_array
+    pts = np.zeros((batch, spec.num_points, 3), np.float32)
+    refs = [np.zeros((batch, m, 3), np.float32) for m in spec.num_refs]
+    for b in range(batch):
+        size = mean[rng.integers(len(mean))] * rng.uniform(0.9, 1.1, 3) * 1.2
+        if b == 0:
+            size = np.zeros(3)
+        corners = gnp.box3d_corners(np.zeros(3), size, 0.0)
+        with warnings.catch_warnings():  # no front or back face at b == 0
+            warnings.simplefilter("ignore", RuntimeWarning)
+            ladders, _ = FrustumRefineProvider.generate_ref(ladder, corners)
+        for r, lad in zip(refs, ladders):
+            r[b] = lad
+        half = np.maximum(size[[0, 2, 1]] / 2, 0.05)  # x ~ l, y ~ h, z ~ w
+        pts[b] = rng.uniform(-1.3, 1.3, (spec.num_points, 3)) * half
+    return pts, refs, list(spec.height_half), list(spec.nsamples)
+
+
+FAMILY_CFGS = {"refine_car": "refine_car.yaml", "refine_people": "refine_people.yaml",
+               "people": "det_sample_people.yaml", "sunrgbd": "det_sample_sunrgbd.yaml"}
+
+
+def family_datasets(cfg_dir: str, work: str, num_frames: int = 8, seed: int = 0) -> dict:
+    """One provider for each model family beyond the flagship, over
+    synthetic splits that the port's own prep writes into ``work``: refine
+    car and refine people (the refine prep's ground-truth path, perturbed,
+    five pseudo-predictions a box, as for training), people (stage-1
+    rgb-detection frustums) and SUN-RGBD (rgb-detection frustums).
+    Returns {family: (spec, dataset)}; the configs are read from
+    ``cfg_dir``."""
+    import contextlib
+    import io
+    import os
+
+    from frustum_convnet_tpu_torch import configs
+    from frustum_convnet_tpu_torch.data.kitti import prepare, prepare_refine
+    from frustum_convnet_tpu_torch.data.kitti.synthetic import make_synthetic_kitti
+    from frustum_convnet_tpu_torch.data.registry import get_provider_class
+    from frustum_convnet_tpu_torch.data.sunrgbd import prepare as sun_prepare
+    from frustum_convnet_tpu_torch.data.sunrgbd.synthetic import make_synthetic_sunrgbd
+
+    def path(*parts):
+        return os.path.join(work, *parts)
+
+    kitti = {"refine_car": ("cars", ("Car",), "frustum_caronly"),
+             "refine_people": ("people", ("Pedestrian", "Cyclist"), "frustum_pedcyc")}
+    for d in (*kitti, "people"):
+        os.makedirs(path(d), exist_ok=True)
+    with contextlib.redirect_stdout(io.StringIO()):  # the prep's progress lines
+        for family, (raw, classes, prefix) in kitti.items():
+            make_synthetic_kitti(path(raw), num_frames=num_frames, cars_per_frame=4,
+                                 seed=seed, classes=classes)
+            prepare_refine.extract_frustum_data(
+                path(raw, "image_sets", "val.txt"), "training",
+                path(family, f"{prefix}_val.pickle"), path(raw), perturb_box3d=True,
+                augmentX=5, type_whitelist=classes, seed=seed)
+        prepare.extract_frustum_data_rgb_detection(
+            path("people", "rgb_detections", "rgb_detection_val.txt"), "training",
+            path("people", "frustum_pedcyc_val_rgb_detection.pickle"),
+            path("people"), type_whitelist=("Pedestrian", "Cyclist"))
+        make_synthetic_sunrgbd(path("sunrgbd"), num_frames=num_frames, objects_per_frame=4,
+                               seed=seed)
+        sun_prepare.extract_frustum_data_rgb_detection(
+            path("sunrgbd"), path("sunrgbd", "det_val.txt"), "training",
+            path("sunrgbd", "rgb_det_val.pickle"))
+    out = {}
+    for family, cfg_file in FAMILY_CFGS.items():
+        cfg = configs.get_default_cfg()
+        configs.merge_cfg_from_file(os.path.join(cfg_dir, cfg_file), cfg)
+        configs.merge_cfg_from_list(["DATA.DATA_ROOT", path(family)], cfg)
+        spec = configs.get_model_spec(cfg)
+        rgb = family in ("people", "sunrgbd")
+        out[family] = (spec, get_provider_class(cfg)(
+            cfg, "val", one_hot=True, from_rgb_detection=rgb,
+            overwritten_data_path=path("sunrgbd", "rgb_det_val.pickle")
+            if family == "sunrgbd" else ""))
+    return out
+
+
+def provider_case(spec, dataset, batch: int, seed: int = 0):
+    """The grouping input of ``batch`` items of ``dataset`` (indices cycled
+    over the split; each item draws its points from one seeded rng), as the
+    drivers' loaders prepare them."""
+    rng = np.random.default_rng(seed)
+    items = [dataset.__getitem__(i % len(dataset), rng) for i in range(batch)]
+    pts = np.stack([it["point_cloud"] for it in items])
+    refs = [np.stack([it["refs"][s] for it in items]) for s in range(spec.num_scales)]
+    return pts, refs, list(spec.height_half), list(spec.nsamples)

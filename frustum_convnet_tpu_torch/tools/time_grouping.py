@@ -13,7 +13,10 @@ At the flagship shapes (``cfgs/det_sample.yaml``, inputs from
 ``ops/grouping_cases.flagship_case``) it times kernel 1 (every scale in one
 launch) at B = 32, 64 and 256, kernels 2 (one scale) and 3 (select only)
 at B = 256 on scales 1 (M=280, K=32) and 4 (M=35, K=128), and kernel 3 at
-the stage profiler's B = 32 on scale 1:
+the stage profiler's B = 32 on scale 1. It then times kernel 1 at B = 32 on
+a batch of each other family's provider (``grouping_cases.family_datasets``:
+refine car, refine people, people and SUN-RGBD, over synthetic splits
+written into a temporary directory):
 
 * ``alone``: the kernel's own device time, the mean over 50 launches of the
   kernels that ``torch.profiler`` names after it;
@@ -35,6 +38,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 # H100 SXM float32 instructions outside the tensor cores: the data sheet's
@@ -101,7 +105,7 @@ def cuda_time_ms(fn, iters: int = 200) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _alone_ms(fn, kernel_name: str, iters: int = 50, attempts: int = 3) -> float:
+def alone_ms(fn, kernel_name: str, iters: int = 50, attempts: int = 3) -> float:
     """Mean device time of the kernels named ``kernel_name`` over ``iters``
     calls, from ``torch.profiler``. A trace that misses launches (seen now
     and then on the card) is taken again, up to ``attempts`` times; then
@@ -154,7 +158,7 @@ def main(argv=None) -> dict:
     rows = []
 
     def measure(name, label, fn, points, refs, dzs, ks):
-        alone = _alone_ms(fn, KERNEL_NAMES[name])
+        alone = alone_ms(fn, KERNEL_NAMES[name])
         calls = cuda_time_ms(fn)
         bound = kernel_bound(name, points, refs, dzs, ks)
         row = {"kernel": name, "case": label, "alone_ms": alone, "calls_ms": calls,
@@ -173,6 +177,17 @@ def main(argv=None) -> dict:
         measure("group_depth_point_multi", f"B={batch}",
                 lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks),
                 t_pts, t_refs, dzs, ks)
+    with tempfile.TemporaryDirectory(prefix="time_grouping-") as work:
+        families = grouping_cases.family_datasets(os.path.join(tree, "cfgs"), work)
+    for family, (fspec, dataset) in families.items():
+        f_pts, f_refs, f_dzs, f_ks = grouping_cases.provider_case(fspec, dataset, 32)
+        f_pts = torch.from_numpy(f_pts).to(dev)
+        f_refs = [torch.from_numpy(r).to(dev) for r in f_refs]
+        label = (f"{family} B=32 (N={fspec.num_points}, M={'/'.join(map(str, fspec.num_refs))}, "
+                 f"K={'/'.join(map(str, f_ks))})")
+        measure("group_depth_point_multi", label,
+                lambda: select_cuda.group_depth_point_multi_cuda(f_pts, f_refs, f_dzs, f_ks),
+                f_pts, f_refs, f_dzs, f_ks)
     # kernels 2 and 3 at B=256 on scales 1 and 4; kernel 3 also at the
     # profiler's B=32 on scale 1
     for batch, i, kernels in ((256, 0, ("group_depth_point", "query_depth_point")),

@@ -49,12 +49,11 @@ def test_query_matches_oracle(rng, b, n, m, d, k):
     np.testing.assert_array_equal(cnt.numpy(), cnt_o)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_grouping_matches_jax_kernel_and_oracle(name):
+def _check_against_jax(case):
     """grouped and cnt equal the Pallas kernel (interpret mode) and the
     oracle select + gather + center-subtract, bit for bit."""
-    pts, refs, dzs, ks = CASES[name]
-    got = _torch_multi(CASES[name])
+    pts, refs, dzs, ks = case
+    got = _torch_multi(case)
     want = group_depth_point_multi(pts, refs, dzs, ks, interpret=True)
     for (g, c), (gj, cj), ref, d, k in zip(got, want, refs, dzs, ks):
         np.testing.assert_array_equal(g.numpy(), np.asarray(gj))
@@ -63,6 +62,62 @@ def test_grouping_matches_jax_kernel_and_oracle(name):
         np.testing.assert_array_equal(
             g.numpy(), np.asarray(group_points(pts, ref, idx_o)))
         np.testing.assert_array_equal(c.numpy(), cnt_o)
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_grouping_matches_jax_kernel_and_oracle(name):
+    _check_against_jax(CASES[name])
+
+
+def _family_spec(family):
+    from frustum_convnet_tpu_torch import configs
+
+    cfg = configs.get_default_cfg()
+    configs.merge_cfg_from_file(
+        os.path.join(ROOT, "cfgs", grouping_cases.FAMILY_CFGS[family]), cfg)
+    return configs.get_model_spec(cfg)
+
+
+def _duplicated_sections(refs):
+    """Sections equal to the one before them, over every scale."""
+    return sum(int((np.diff(r, axis=1) == 0).all(axis=-1).sum()) for r in refs)
+
+
+@pytest.mark.parametrize("family,batch", [("refine_car", 3), ("refine_people", 2),
+                                          ("sunrgbd", 2), ("people", 1)])
+def test_family_cases_match_jax_kernel_and_oracle(family, batch):
+    """The refine case (N=512, edge-padded ladders, row 0 all zeros), the
+    5-scale SUN-RGBD case (N=2048, K up to 256) and the people case (1313
+    sections) through the plain version, the Pallas kernel and the oracle."""
+    spec = _family_spec(family)
+    if spec.ref_span is not None:
+        case = grouping_cases.refine_case(spec, batch)
+        assert not any(r[0].any() for r in case[1])
+        assert _duplicated_sections([r[1:] for r in case[1]]) > 0
+    else:
+        case = grouping_cases.flagship_case(spec, batch)
+    assert [r.shape[1] for r in case[1]] == list(spec.num_refs)
+    assert case[0].shape == (batch, spec.num_points, 3)
+    _check_against_jax(case)
+
+
+@pytest.fixture(scope="module")
+def families(tmp_path_factory):
+    return grouping_cases.family_datasets(os.path.join(ROOT, "cfgs"),
+                                          str(tmp_path_factory.mktemp("families")))
+
+
+@pytest.mark.parametrize("family", sorted(grouping_cases.FAMILY_CFGS))
+def test_provider_batches_match_jax_kernel_and_oracle(families, family):
+    """Batches of each family's provider over the synthetic splits (the
+    refine providers' ladders are edge-padded)."""
+    spec, dataset = families[family]
+    case = grouping_cases.provider_case(spec, dataset, batch=2, seed=1)
+    if spec.ref_span is not None:
+        assert _duplicated_sections(case[1]) > 0
+    out = _check_against_jax(case)
+    assert any(int(c.sum()) > 0 for _, c in out)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -400,9 +455,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_port_imports_nothing_of_the_jax_package(tmp_path):
     """In a fresh interpreter, after every module of the port is imported and
-    the training and serving entry points have run on the CPU at a tiny
-    size, no module of the JAX package (``frustum_convnet_tpu``), nor jax,
-    flax or optax, is loaded."""
+    the training and serving entry points, the KITTI and SUN-RGBD prep CLIs
+    and the SUN-RGBD driver have run on the CPU at a tiny size, no module of
+    the JAX package (``frustum_convnet_tpu``), nor jax, flax or optax, is
+    loaded."""
     code = f"""
 import importlib, pkgutil, sys
 import torch
@@ -439,6 +495,29 @@ res = serve.main(["--cfg", cfg_file, "--device", "cpu", "--gt_dir",
     "TPU.INFER_GROUP", "1",
     "TEST.WEIGHTS", checkpoints.checkpoint_paths(work + "/out")["final"]])
 assert res["stats"]["frustums"] == 4 and res["ap"] is not None, res
+
+# the prep CLIs and the SUN-RGBD driver
+from frustum_convnet_tpu_torch.data.kitti import prepare, prepare_refine
+from frustum_convnet_tpu_torch.data.kitti.synthetic import make_synthetic_kitti
+from frustum_convnet_tpu_torch.data.sunrgbd import ingest
+from frustum_convnet_tpu_torch.data.sunrgbd import prepare as sun_prepare
+from frustum_convnet_tpu_torch.data.sunrgbd.synthetic import make_synthetic_sunrgbd
+from frustum_convnet_tpu_torch.engine import test_sunrgbd
+make_synthetic_kitti(work + "/kitti", num_frames=2, cars_per_frame=1)
+prepare.main(["--car_only", "--gen_val_rgb_detection", "--data_root", work + "/kitti",
+              "--rgb_det_dir", work + "/kitti/rgb_detections", "--save_dir", work + "/p1"])
+prepare_refine.main(["--car_only", "--gen_val", "--data_root", work + "/kitti",
+                     "--save_dir", work + "/p2"])
+make_synthetic_sunrgbd(work + "/sun", num_frames=2, objects_per_frame=1)
+sun_prepare.main(["--gen_val_rgb_detection", "--sunrgbd_dir", work + "/sun",
+                  "--det_file", work + "/sun/det_val.txt", "--save_dir", work + "/p3"])
+sun = test_sunrgbd.main(["--cfg", {os.path.join(ROOT, "cfgs", "det_sample_sunrgbd.yaml")!r},
+                         "--device", "cpu", "--sunrgbd_dir", work + "/sun", "--val_idx",
+                         work + "/sun/image_sets/val.txt", "DATA.NUM_SAMPLES", "256",
+                         "DATA.MAX_DEPTH", "2", "TEST.BATCH_SIZE", "2", "NUM_WORKERS", "1",
+                         "OVER_WRITE_TEST_FILE", work + "/p3/sunrgbd_rgb_det_val.pickle",
+                         "OUTPUT_DIR", work + "/sun_out"])
+assert sun["stats"]["frustums"] >= 1 and sun["ap"] is not None, sun
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
 assert not bad, bad

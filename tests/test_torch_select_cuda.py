@@ -1,9 +1,11 @@
 """The CUDA grouping kernels against their plain PyTorch versions, on the card.
 
 Bit for bit (grouped, idx and cnt) on every edge case of
-``tests/test_select_pallas.py`` and at the flagship shapes, for the three
-modes: every scale in one launch (kernel 1), one scale (kernel 2) and the
-select alone (kernel 3). This file
+``tests/test_select_pallas.py``, at the flagship shapes and at the other
+families' (refine car and people with edge-padded ladders, people, SUN-RGBD;
+synthetic cases and B=32 provider batches), for the three modes: every
+scale in one launch (kernel 1), one scale (kernel 2) and the select alone
+(kernel 3). This file
 imports no jax, so on a machine with the card it runs alone:
 
     python -m pytest --noconftest -q tests/test_torch_select_cuda.py
@@ -147,6 +149,43 @@ def test_kernel_flagship_batches(cuda, batch):
     cfg = get_default_cfg()
     merge_cfg_from_file("cfgs/det_sample.yaml", cfg)
     _check(grouping_cases.flagship_case(get_model_spec(cfg), batch=batch, seed=batch), cuda)
+
+
+def _family_spec(family):
+    cfg = get_default_cfg()
+    merge_cfg_from_file(f"cfgs/{grouping_cases.FAMILY_CFGS[family]}", cfg)
+    return get_model_spec(cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(grouping_cases.FAMILY_CFGS))
+@pytest.mark.parametrize("batch", [3, 32])
+def test_kernel_family_shapes(cuda, family, batch):
+    """The refine cases (N=512, edge-padded ladders, row 0 all zeros, so
+    each row scans a NaN-padded 1024-point chunk), SUN-RGBD (N=2048, 5
+    scales, K up to 256) and people (1313 sections)."""
+    spec = _family_spec(family)
+    case = (grouping_cases.refine_case(spec, batch) if spec.ref_span is not None
+            else grouping_cases.flagship_case(spec, batch))
+    _check(case, cuda)
+    _check_single(case, cuda)
+
+
+@pytest.fixture(scope="module")
+def families(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    return grouping_cases.family_datasets("cfgs", str(tmp_path_factory.mktemp("families")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", sorted(grouping_cases.FAMILY_CFGS))
+def test_kernel_family_provider_batches(cuda, families, family):
+    """Kernels 1, 2 and 3 on a B=32 batch of each family's provider."""
+    spec, dataset = families[family]
+    case = grouping_cases.provider_case(spec, dataset, batch=32, seed=2)
+    _check(case, cuda)
+    _check_single(case, cuda)
 
 
 @pytest.mark.cuda

@@ -12,8 +12,10 @@ import dataclasses
 import glob
 import importlib
 import os
+import pickle
 import socket
 import time
+import warnings
 
 import numpy as np
 import pytest
@@ -84,10 +86,32 @@ def _files(directory):
     return dict(sorted(out.items()))
 
 
+def fake_stage1_results(label_dir: str, res_dir: str, seed: int = 0) -> None:
+    """A stage-1 result directory: each ground-truth box of ``label_dir``
+    moved by a few decimetres, with a detector score."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(res_dir)
+    for name in sorted(os.listdir(label_dir)):
+        lines = []
+        with open(os.path.join(label_dir, name)) as f:
+            for line in f:
+                p = line.split()
+                vals = [float(x) for x in p[1:]]
+                vals[10] += rng.normal(0, 0.1)  # tx
+                vals[12] += rng.normal(0, 0.1)  # tz
+                lines.append(p[0] + " " + " ".join(f"{v:.2f}" for v in vals)
+                             + f" {rng.uniform(0.6, 0.95):.3f}")
+        with open(os.path.join(res_dir, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
 @pytest.fixture(scope="module")
 def splits(tmp_path_factory):
     """A tiny labeled split and a tiny rgb-detection split with its KITTI
-    ground truth, written from seeded numpy."""
+    ground truth, written from seeded numpy; the refine pickles of a tiny
+    synthetic KITTI and the SUN-RGBD pickles of tiny synthetic scenes,
+    written by the port (the prep cases hold the port's prep to the
+    original's)."""
     work = str(tmp_path_factory.mktemp("standalone"))
     spec = _mod(PORT, "configs").get_model_spec(
         _cfg(PORT, CFG_FILES[0], TINY))
@@ -95,7 +119,35 @@ def splits(tmp_path_factory):
                                 num_val=4)
     val = chip_smoke.make_val_split(os.path.join(work, "serve"), spec,
                                     num_frames=3, cars_per_frame=2)
-    return {"work": work, "train": os.path.join(work, "train"), **val}
+
+    kitti = os.path.join(work, "kitti_raw")
+    _mod(PORT, "data.kitti.synthetic").make_synthetic_kitti(
+        kitti, num_frames=4, cars_per_frame=2, seed=2)
+    res = os.path.join(work, "stage1", "data")
+    fake_stage1_results(os.path.join(kitti, "training", "label_2"), res)
+    people = os.path.join(work, "people_raw")
+    _mod(PORT, "data.kitti.synthetic").make_synthetic_kitti(
+        people, num_frames=4, cars_per_frame=3, seed=3,
+        classes=("Pedestrian", "Cyclist"))
+    refine = os.path.join(work, "refine")
+    _mod(PORT, "data.kitti.prepare_refine").main([
+        "--car_only", "--gen_train", "--gen_val", "--gen_val_det",
+        "--gen_val_rgb_detection", "--data_root", kitti, "--save_dir", refine,
+        "--train_res_dir", res, "--val_res_dir", res])
+
+    sun = os.path.join(work, "sun_raw")
+    _mod(PORT, "data.sunrgbd.synthetic").make_synthetic_sunrgbd(
+        sun, num_frames=4, objects_per_frame=2, seed=4)
+    sun_pickles = os.path.join(work, "sun_pickles")
+    _mod(PORT, "data.sunrgbd.prepare").main([
+        "--gen_train", "--gen_val", "--gen_val_rgb_detection", "--sunrgbd_dir", sun,
+        "--save_dir", sun_pickles, "--train_idx",
+        os.path.join(sun, "image_sets", "train.txt"), "--val_idx",
+        os.path.join(sun, "image_sets", "val.txt"), "--det_file",
+        os.path.join(sun, "det_val.txt")])
+    return {"work": work, "train": os.path.join(work, "train"), **val,
+            "kitti_raw": kitti, "people_raw": people, "stage1": res, "refine": refine,
+            "sun_raw": sun, "sun_pickles": sun_pickles}
 
 
 # -- cases: each takes (package, splits, out_dir) and returns its result ----
@@ -141,8 +193,9 @@ def case_kitti_spec(pkg, splits, out):
 
 
 def case_provider_registry(pkg, splits, out):
-    cls = _mod(pkg, "data.registry").get_provider_class(_cfg(pkg, CFG_FILES[0]))
-    return cls.__name__, cls.name
+    registry = _mod(pkg, "data.registry")
+    return [(cls.__name__, cls.name) for cls in
+            (registry.get_provider_class(_cfg(pkg, f)) for f in CFG_FILES)]
 
 
 def case_dataset_info(pkg, splits, out):
@@ -377,6 +430,281 @@ def case_pr_plot(pkg, splits, out):
     return os.path.exists(path) and os.path.getsize(path) > 0
 
 
+CFG = {os.path.basename(f)[:-5]: f for f in CFG_FILES}
+
+
+def _attrs(obj):
+    """An object's attributes as a dict, for comparison across packages."""
+    return dict(vars(obj))
+
+
+def case_prep_util(pkg, splits, out):
+    prep_util = _mod(pkg, "data.prep_util")
+    frames = prep_util.parallel_map_frames(abs, [-3, 1, -2])
+    merged = prep_util.merge_frame_outputs(
+        [{"a": [i], "b": [i, -i]} for i in frames], ("a", "b"))
+    return frames, merged
+
+
+def _synthetic_kitti(pkg, out, **kw):
+    _mod(pkg, "data.kitti.synthetic").make_synthetic_kitti(
+        os.path.join(out, "raw"), num_frames=4, cars_per_frame=2, seed=2, **kw)
+    return _files(out)
+
+
+def case_kitti_synthetic(pkg, splits, out):
+    return _synthetic_kitti(pkg, out)
+
+
+def case_kitti_synthetic_people(pkg, splits, out):
+    return _synthetic_kitti(pkg, out, classes=("Pedestrian", "Cyclist"))
+
+
+def case_kitti_calib_and_object(pkg, splits, out):
+    calib = _mod(pkg, "data.kitti.calib")
+    ds = _mod(pkg, "data.kitti.object").KittiObjectDataset(splits["kitti_raw"])
+    c = ds.get_calibration(1)
+    rng = np.random.default_rng(16)
+    pts = rng.uniform(-10, 40, (50, 3))
+    uvd = np.hstack([rng.uniform(0, 1200, (20, 2)), rng.uniform(2, 60, (20, 1))])
+    objs = ds.get_label_objects(2)
+    line = objs[0].to_kitti_line() + " 0.87"
+    scored = calib.Object3d(line)
+    return (len(ds), c.as_dict(), c.velo_to_ref(pts), c.ref_to_velo(pts),
+            c.ref_to_rect(pts), c.rect_to_ref(pts), c.velo_to_rect(pts),
+            c.rect_to_velo(pts), c.rect_to_image(pts + [0, 0, 10]),
+            c.velo_to_image(pts), c.image_to_rect(uvd), c.image_to_velo(uvd),
+            [_attrs(o) for o in objs], [o.to_kitti_line() for o in objs],
+            _attrs(scored), scored.to_kitti_line(), ds.get_lidar(3),
+            ds.get_image_size(0), ds.get_image(0).shape,
+            calib.Calibration(c.as_dict()).as_dict())
+
+
+def case_kitti_prepare(pkg, splits, out):
+    """The stage-1 prep CLI, every pickle of the car split (the GT path over
+    2 worker processes) and of the people split."""
+    prepare = _mod(pkg, "data.kitti.prepare")
+    raw = splits["kitti_raw"]
+    common = ["--data_root", raw, "--rgb_det_dir", os.path.join(raw, "rgb_detections")]
+    prepare.main(["--car_only", "--gen_train", "--gen_val", "--gen_val_rgb_detection",
+                  "--gen_train_det", "--gen_avg_dim", "--workers", "2",
+                  "--save_dir", os.path.join(out, "car")] + common)
+    people = splits["people_raw"]
+    prepare.main(["--people_only", "--gen_train", "--gen_val", "--gen_val_rgb_detection",
+                  "--data_root", people, "--rgb_det_dir",
+                  os.path.join(people, "rgb_detections"),
+                  "--save_dir", os.path.join(out, "people")])
+    stats = prepare.get_box3d_dim_statistics(
+        os.path.join(people, "image_sets", "train.txt"), people)
+    return _files(out), stats
+
+
+def case_kitti_prepare_refine(pkg, splits, out):
+    """The refine prep CLI: the GT path (over 2 worker processes), the
+    detection-assignment path and the rgb-detection path."""
+    prepare_refine = _mod(pkg, "data.kitti.prepare_refine")
+    res = splits["stage1"]
+    prepare_refine.main(["--car_only", "--gen_train", "--gen_val", "--gen_val_det",
+                         "--gen_val_rgb_detection", "--workers", "2",
+                         "--data_root", splits["kitti_raw"], "--save_dir", out,
+                         "--train_res_dir", res, "--val_res_dir", res])
+    rng = np.random.default_rng(20)
+    box = np.array([1.0, 1.5, 20.0, 3.9, 1.6, 1.5, 0.3])
+    return (_files(out), prepare_refine.random_shift_rotate_box3d(box, 0.05, rng),
+            prepare_refine.center_array_corners(box))
+
+
+def case_box_overlaps(pkg, splits, out):
+    bo = _mod(pkg, "core.box_overlaps")
+    rng = np.random.default_rng(19)
+    b1 = np.sort(rng.uniform(0, 10, (6, 2)), axis=1)
+    b2 = np.sort(rng.uniform(0, 100, (6, 2, 2)), axis=1).reshape(6, 4)[:, [0, 2, 1, 3]]
+    lo = rng.uniform(0, 5, (5, 3))
+    b3 = np.hstack([lo, lo + rng.uniform(0.5, 3, (5, 3))])
+    centers, sizes, headings = _corners(rng, 5)
+    centers[:, :2] *= 0.3
+    boxes3d = np.hstack([centers, sizes, headings[:, None]])
+    bev = boxes3d[:, [0, 2, 3, 4, 6]]
+    corners = bo.boxes3d2corners(boxes3d)
+    return (bo.bbox_overlaps_1d(b1, b1[::-1]), bo.bbox_overlaps_2d(b2, b2[::-1]),
+            bo.bbox_overlaps_3d(b3, b3[::-1]), bo.rbbox2corner(bev), corners,
+            bo.corner2standup(corners), bo.rbbox_iou(bev, bev[::-1]),
+            bo.rbbox_iou_3d(boxes3d, boxes3d[::-1]),
+            bo.rbbox_iou_3d_pair(corners, corners[::-1]))
+
+
+def _refine_provider(pkg, splits, split, cfg_name="refine_car", **kw):
+    cfg = _cfg(pkg, CFG[cfg_name], ["DATA.DATA_ROOT", splits["refine"],
+                                    "DATA.NUM_SAMPLES", "128"])
+    return _mod(pkg, "data.provider_refine").FrustumRefineProvider(cfg, split, **kw)
+
+
+def case_provider_refine_items(pkg, splits, out):
+    """Labeled, rgb-detection and extend_from_det items from one seeded rng;
+    the ladders of a degenerate box (all zeros) and the decode."""
+    labeled = _refine_provider(pkg, splits, "train", random_flip=True,
+                               random_shift=True)
+    rgb = _refine_provider(pkg, splits, "val", from_rgb_detection=True)
+    extended = _refine_provider(pkg, splits, "train", extend_from_det=True)
+    rng = np.random.default_rng(17)
+    items = ([labeled.__getitem__(i, rng) for i in range(len(labeled))]
+             + [rgb.__getitem__(i, rng) for i in range(len(rgb))]
+             + [extended.__getitem__(i, rng) for i in range(len(labeled), len(extended))])
+    provider_refine = _mod(pkg, "data.provider_refine")
+    decoded = provider_refine.from_prediction_to_label_format(
+        rng.normal(size=3), 0.4, rng.uniform(1, 4, 3), 1.2, rng.normal(size=3))
+    with warnings.catch_warnings():  # a box with no extent has no front face
+        warnings.simplefilter("ignore", RuntimeWarning)
+        empty = labeled.generate_ref(np.zeros((8, 3)))
+    return items, len(extended), labeled.num_refs, empty, decoded
+
+
+def case_sunrgbd_synthetic(pkg, splits, out):
+    _mod(pkg, "data.sunrgbd.synthetic").make_synthetic_sunrgbd(
+        os.path.join(out, "raw"), num_frames=4, objects_per_frame=2, seed=4)
+    return _files(out)
+
+
+def case_sunrgbd_calib_and_object(pkg, splits, out):
+    calib = _mod(pkg, "data.sunrgbd.calib")
+    ds = _mod(pkg, "data.sunrgbd.object").SunrgbdObjectDataset(splits["sun_raw"])
+    c = ds.get_calibration(2)
+    rng = np.random.default_rng(21)
+    pc = ds.get_pointcloud(2)[:200]
+    uvd = np.hstack([rng.uniform(0, 700, (20, 2)), rng.uniform(0.5, 8, (20, 1))])
+    objs = ds.get_label_objects(2)
+    np.savetxt(os.path.join(out, "pts.txt"), pc[:5])
+    return (c.calib_text(), c.upright_depth_to_camera(pc), c.upright_depth_to_image(pc),
+            c.upright_depth_to_upright_camera(pc), c.upright_camera_to_upright_depth(pc),
+            c.image_to_camera(uvd), c.image_to_upright_camera(uvd),
+            calib.project_image_to_upright_camera(uvd, c.K, c.Rtilt),
+            [_attrs(o) for o in objs], [o.to_label_line() for o in objs],
+            [calib.compute_box3d_upright_depth(o) for o in objs],
+            calib.random_shift_box2d(objs[0].box2d, 0.1, rng), calib.rotz(0.7),
+            calib.flip_axis_to_camera(pc), calib.flip_axis_to_depth(pc),
+            calib.load_depth_points(os.path.join(out, "pts.txt")))
+
+
+def case_sunrgbd_prepare(pkg, splits, out):
+    """The SUN-RGBD prep CLI over 2 worker processes; the voxel downsample
+    and the detection-pickle reader."""
+    prepare = _mod(pkg, "data.sunrgbd.prepare")
+    sun = splits["sun_raw"]
+    sets = os.path.join(sun, "image_sets")
+    prepare.main(["--gen_train", "--gen_val", "--gen_val_rgb_detection",
+                  "--workers", "2", "--sunrgbd_dir", sun, "--save_dir", out,
+                  "--train_idx", os.path.join(sets, "train.txt"),
+                  "--val_idx", os.path.join(sets, "val.txt"),
+                  "--det_file", os.path.join(sun, "det_val.txt")])
+    down = os.path.join(out, "down", "val.pickle")
+    os.makedirs(os.path.dirname(down))
+    prepare.extract_frustum_data(sun, os.path.join(sets, "val.txt"), "training", down,
+                                 with_down_sample=True)
+    rng = np.random.default_rng(22)
+    dets = [[[] for _ in range(2)] for _ in range(len(prepare.DET_CLASSES_19))]
+    dets[2][0] = [np.array([10.0, 20.0, 200.0, 220.0, 0.9])]
+    dets[5][1] = [np.array([5.0, 6.0, 50.0, 70.0, 0.7])]
+    det_pkl = os.path.join(out, "dets.pkl")
+    with open(det_pkl, "wb") as f:
+        pickle.dump(dets, f)
+    return (_files(out), prepare.down_sample(rng.uniform(0, 0.05, (300, 3))),
+            prepare.read_det_pkl_file(det_pkl))
+
+
+@pytest.fixture(scope="module")
+def mini_toolbox(tmp_path_factory):
+    """A 2-sample SUN-RGBD toolbox dump (``tests/test_sunrgbd_ingest.py``'s
+    layout): depth and rgb images and ``SUNRGBDMeta.mat``."""
+    import test_sunrgbd_ingest as ti
+    from PIL import Image
+    from scipy import io as scipy_io
+
+    root = tmp_path_factory.mktemp("toolbox")
+    scene = root / "SUNRGBD" / "kv1" / "scene0"
+    (scene / "image").mkdir(parents=True)
+    (scene / "depth").mkdir()
+    rng = np.random.default_rng(0)
+    mm = np.full((ti.H, ti.W), int(ti.DEPTH_M * 1000), dtype=np.uint32)
+    mm += rng.integers(-200, 200, size=(ti.H, ti.W)).astype(np.uint32)
+    mm[0, :4] = 0
+    Image.fromarray(ti._encode_depth(mm), mode="I;16").save(str(scene / "depth" / "d.png"))
+    Image.fromarray(rng.integers(0, 255, size=(ti.H, ti.W, 3), dtype=np.uint8),
+                    mode="RGB").save(str(scene / "image" / "i.jpg"))
+    K = np.array([[ti.FX, 0, ti.W / 2.0], [0, ti.FY, ti.H / 2.0], [0, 0, 1.0]])
+    meta = np.zeros((1, 2), dtype=[
+        ("depthpath", "O"), ("rgbpath", "O"), ("Rtilt", "O"), ("K", "O"),
+        ("groundtruth3DBB", "O"), ("groundtruth2DBB", "O")])
+    for i, rtilt in enumerate((ti._rot_x(0.1), np.eye(3))):
+        centroid = rtilt @ np.array([0.0, ti.DEPTH_M, 0.0])
+        bb3 = [ti._bb3("bed", centroid, (1.2, 1.2, 1.2), (1.0, 0.0, 0.0)),
+               ti._bb3("chair", centroid + 2.0, (0.3, 0.3, 0.5), (0.0, 1.0, 0.0))]
+        bb2 = [ti._bb2((10, 10, 44, 28)), ti._bb2(None if i else (3, 4, 20, 30))]
+        meta[0, i] = ("/n/fs/sun3d/data/SUNRGBD/kv1/scene0/depth/d.png",
+                      "/n/fs/sun3d/data/SUNRGBD/kv1/scene0/image/i.jpg", rtilt, K,
+                      np.concatenate(bb3).reshape(1, -1), np.concatenate(bb2).reshape(1, -1))
+    meta_path = str(root / "SUNRGBDMeta.mat")
+    scipy_io.savemat(meta_path, {"SUNRGBDMeta": meta})
+    return {"meta": meta_path, "sunrgbd_root": str(root / "SUNRGBD")}
+
+
+def case_sunrgbd_ingest(pkg, splits, out, mini_toolbox):
+    ingest = _mod(pkg, "data.sunrgbd.ingest")
+    ingest.main(["--meta", mini_toolbox["meta"], "--sunrgbd_root",
+                 mini_toolbox["sunrgbd_root"], "--save_root",
+                 os.path.join(out, "training"), "--image_sets",
+                 os.path.join(out, "image_sets")])
+    basis = np.array([[0.0, 1.0, 0.0], [0.6, 0.0, 0.8], [0.9, 0.1, 0.0]])
+    return (_files(out), ingest.order_basis(basis, np.array([1.0, 2.0, 3.0]),
+                                            np.array([0.0, 4.0, 0.0])))
+
+
+def _sun_provider(pkg, splits, split, **kw):
+    cfg = _cfg(pkg, CFG["det_sample_sunrgbd"], ["DATA.DATA_ROOT", splits["sun_pickles"],
+                                                "DATA.NUM_SAMPLES", "256"])
+    return _mod(pkg, "data.provider_sunrgbd").FrustumSunrgbdProvider(cfg, split, **kw)
+
+
+def case_provider_sunrgbd_items(pkg, splits, out):
+    """Labeled (augmented), labeled val and rgb-detection items from one
+    seeded rng, and the decode with and without a reference center."""
+    train = _sun_provider(pkg, splits, "train", random_flip=True, random_shift=True)
+    val = _sun_provider(pkg, splits, "val")
+    rgb = _sun_provider(pkg, splits, "val", from_rgb_detection=True,
+                        overwritten_data_path=os.path.join(
+                            splits["sun_pickles"], "sunrgbd_rgb_det_val.pickle"))
+    rng = np.random.default_rng(23)
+    items = [ds.__getitem__(i, rng) for ds in (train, val, rgb) for i in range(len(ds))]
+    decode = _mod(pkg, "data.provider_sunrgbd").from_prediction_to_label_format
+    args = (rng.normal(size=3), 0.4, rng.uniform(0.5, 2, 3), 1.2)
+    return items, decode(*args), decode(*args, rng.normal(size=3))
+
+
+def case_sunrgbd_eval(pkg, splits, out):
+    """``build_gt_all``, then ``eval_det`` (both AP rules, with the json it
+    writes) on jittered ground truth with false positives, ``voc_ap`` and
+    the MATLAB ground-truth reader."""
+    ev = _mod(pkg, "evaluation.sunrgbd_eval")
+    whitelist = _mod(pkg, "data.sunrgbd.prepare").TYPE_WHITELIST_10
+    with open(os.path.join(splits["sun_raw"], "image_sets", "val.txt")) as f:
+        ids = [int(line) for line in f if line.strip()]
+    gt = ev.build_gt_all(splits["sun_raw"], ids, whitelist)
+    rng = np.random.default_rng(18)
+    pred = {cls: {img: [(b + rng.normal(0, 0.05, b.shape), float(rng.uniform()))
+                        for b in boxes] + [(boxes[0] + 1.5, 0.35)]
+                  for img, boxes in per.items()} for cls, per in gt.items()}
+    recs, precs, aps = ev.eval_det(pred, gt, ovthresh=0.25, result_dir=out)
+    aps07 = ev.eval_det(pred, gt, ovthresh=0.25, use_07_metric=True)[2]
+    rec, prec = np.array([0.1, 0.2, 0.5, 1.0]), np.array([1.0, 1.0, 0.8, 0.6])
+    rows = np.hstack([rng.uniform(-2, 2, (3, 8)), np.array([[0.0, 1.0]] * 3)])
+    np.savetxt(os.path.join(out, "chair_gt_boxes.dat"), rows)
+    np.savetxt(os.path.join(out, "chair_gt_imgids.txt"), [3, 3, 4])
+    files = _files(out)
+    return (gt, recs, precs, aps, aps07, ev.voc_ap(rec, prec),
+            ev.voc_ap(rec, prec, use_07_metric=True),
+            files["sunrgbd_ap.json"], sorted(k for k in files if k.endswith(".png")),
+            ev.load_matlab_gt_cls(out, "chair"))
+
+
 CASES = {
     "config_default": case_config_default,
     "config_flagship": case_config_flagship,
@@ -399,26 +727,46 @@ CASES = {
     "training_states": case_training_states,
     "scalar_writer": case_scalar_writer,
     "pr_plot": case_pr_plot,
+    "data.prep_util": case_prep_util,
+    "kitti_synthetic": case_kitti_synthetic,
+    "kitti_synthetic_people": case_kitti_synthetic_people,
+    "kitti_calib_and_object": case_kitti_calib_and_object,
+    "kitti_prepare": case_kitti_prepare,
+    "kitti_prepare_refine": case_kitti_prepare_refine,
+    "core.box_overlaps": case_box_overlaps,
+    "provider_refine_items": case_provider_refine_items,
+    "sunrgbd_synthetic": case_sunrgbd_synthetic,
+    "sunrgbd_calib_and_object": case_sunrgbd_calib_and_object,
+    "sunrgbd_prepare": case_sunrgbd_prepare,
+    "sunrgbd_ingest": case_sunrgbd_ingest,
+    "provider_sunrgbd_items": case_provider_sunrgbd_items,
+    "sunrgbd_eval": case_sunrgbd_eval,
 }
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_copy_matches_original(name, splits, tmp_path, monkeypatch):
+def test_copy_matches_original(name, splits, tmp_path, monkeypatch, request):
     case = CASES[name]
+    extra = {"scalar_writer": lambda: (monkeypatch,),
+             "sunrgbd_ingest": lambda: (request.getfixturevalue("mini_toolbox"),)}
     results = []
     for pkg in (JAX_PKG, PORT):
         out = tmp_path / pkg
         out.mkdir()
-        extra = (monkeypatch,) if name == "scalar_writer" else ()
-        results.append(case(pkg, splits, str(out), *extra))
+        results.append(case(pkg, splits, str(out), *extra.get(name, tuple)()))
     assert_same(*results)
 
 
-@pytest.mark.parametrize("name", ["provider_sample_refine", "provider_sample_sunrgbd"])
-def test_unported_providers_raise(name):
+@pytest.mark.parametrize("name,module,cls", [
+    ("provider_sample_refine", "data.provider_refine", "FrustumRefineProvider"),
+    ("provider_sample_sunrgbd", "data.provider_sunrgbd", "FrustumSunrgbdProvider")])
+def test_ported_providers_resolve(name, module, cls):
+    """The refine and SUN-RGBD provider names resolve to the port's own
+    classes."""
     registry = _mod(PORT, "data.registry")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        registry.get_provider_class(_cfg(PORT, overrides=["DATA.FILE", name]))
+    got = registry.get_provider_class(_cfg(PORT, overrides=["DATA.FILE", name]))
+    assert got is getattr(_mod(PORT, module), cls) and got.name == name
+    assert got.__module__ == f"{PORT}.{module}"
 
 
 def test_every_copy_is_tested():
@@ -436,7 +784,7 @@ def test_every_copy_is_tested():
     source = inspect.getsource(inspect.getmodule(test_every_copy_is_tested))
     port_own = {"core.codecs", "core.geometry", "core.iou", "ops.query_depth_point",
                 "models.net", "models.det", "models.losses", "parallel.train_step",
-                "engine.train", "engine.test", "engine.checkpoints",
-                "tools.profile_stages"}
+                "engine.train", "engine.test", "engine.test_sunrgbd",
+                "engine.checkpoints", "tools.profile_stages"}
     untested = [m for m in copied if m not in port_own and f'"{m}"' not in source]
     assert copied and not untested, untested
