@@ -75,7 +75,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     provider (``ops/grouping_cases.family_datasets``), timed alone
     (``torch.profiler``) beside its bound and the plain version's time, and
     the family's forward at batch 8 on the card against the CPU (TF32 off,
-    atol/rtol 1e-4).
+    atol/rtol 1e-4);
+13. precision and BatchNorm variants: the bfloat16 and float16 forward at
+    batch 8 of phase 5's split, card against the CPU within the CPU's own
+    distance from float32; one batch-8 train step each in bfloat16,
+    float16, ghost BatchNorm (groups of 4), FAST_BN, FAST_BN_FIRST and
+    REMAT_POINTNET, card against CPU; for float32, bfloat16 and float16 at
+    batch 32, the step's time by CUDA events and its device time
+    (``torch.profiler``), and the peak memory of a step with and without
+    REMAT_POINTNET; ``engine.train.main`` at batch 32 in bfloat16 (2 epochs
+    of 32 steps) and in float16 with TPU.F32_FINETUNE_EPOCHS 1 (3 epochs,
+    the switch logged at epoch 2), printing each epoch's ms/step;
+    ``engine.test.main`` at TPU.INFER_DTYPE bfloat16 on phase 5's split,
+    its AP beside phase 5's; ``tools.profile_stages --dtype`` bfloat16 and
+    float16, the forward ms beside phase 7's float32.
 
 The splits of phases 4-9 are written here from seeded numpy, with one car
 generator: the val split in the reference's 7-stream rgb-detection pickle
@@ -92,7 +105,9 @@ run (phase 9), kernels 2 and 3 over the profiler's (phase 7).
 ``path_launches`` gives each kernel's launches on every driver path, each
 counted the same way: serving and training (phases 5 and 9), the refine
 cascade's stage-1 serving, training and serving (phase 10), and SUN-RGBD
-training and serving (phase 11); only kernel 1 runs there.
+training and serving (phase 11), bfloat16 training, float16 training with
+the float32 fine-tune and bfloat16 serving (phase 13); only kernel 1 runs
+there.
 ``main_path_launches`` is their sum. Kernel 1's ``family_shapes`` holds its
 phase-12 numbers. Launches that compare a kernel with its plain version are
 not counted. ``bound_ms`` is
@@ -312,17 +327,18 @@ def _counts() -> dict:
     return {name: c.launches for name, c in _counters().items()}
 
 
-def phase_profiler() -> dict:
-    """The stage profiler at batch 32; returns each kernel's launches in it."""
+def phase_profiler() -> tuple:
+    """The stage profiler at batch 32; returns each kernel's launches in it
+    and its stage times."""
     from frustum_convnet_tpu_torch.tools import profile_stages
 
     _reset_counts()
-    profile_stages.main(["--batch", "32"])
+    times = profile_stages.main(["--batch", "32"])
     launches = _counts()
     if min(launches.values()) <= 0:
         raise AssertionError(f"the profiler did not launch every kernel: {launches}")
     print(f"[profiler] kernel launches: {launches}")
-    return launches
+    return launches, times
 
 
 def _roty(t: float) -> np.ndarray:
@@ -579,9 +595,10 @@ def phase_model(spec, device, model, dataset, tag: str = "model") -> None:
               f"{(g - c).abs().max().item():.3e} (atol/rtol 1e-4)")
 
 
-def phase_driver(model, split: dict, work: str) -> dict:
-    """The port's CLI entry point on the card over ``split``; returns each
-    kernel's launches in that run."""
+def phase_driver(model, split: dict, work: str, opts=(), tag: str = "driver") -> dict:
+    """The port's CLI entry point on the card over ``split`` (with the
+    config overrides ``opts``); returns each kernel's launches in that run
+    and the evaluator's car APs."""
     import math
 
     from frustum_convnet_tpu_torch.engine import checkpoints
@@ -600,9 +617,9 @@ def phase_driver(model, split: dict, work: str) -> dict:
         "--device", "cuda", "--gt_dir", split["gt_dir"],
         "--idx_path", split["idx_path"],
         "DATA.DATA_ROOT", split["pickle_dir"],
-        "OUTPUT_DIR", os.path.join(work, "output"),
+        "OUTPUT_DIR", os.path.join(work, "output_" + tag.replace(" ", "_")),
         "TEST.BATCH_SIZE", "32", "TPU.INFER_GROUP", "2",
-        "TEST.WEIGHTS", weights])
+        "TEST.WEIGHTS", weights, *opts])
     counts = _counts()
     launches = counts["group_depth_point_multi"]
 
@@ -631,7 +648,7 @@ def phase_driver(model, split: dict, work: str) -> dict:
     if launches <= 0:
         raise AssertionError("the driver's run never launched the CUDA kernel")
     expected = n_batches // 2 + 1 + stats["overflow_reruns"]
-    print(f"[driver] {stats['frustums']} frustums, {n_batches} batches of 32 in "
+    print(f"[{tag}] {stats['frustums']} frustums, {n_batches} batches of 32 in "
           f"groups of 2: {launches} kernel launches (expected {expected}), "
           f"{stats['sections']} foreground sections "
           f"({stats['sections'] / stats['frustums']:.3f} a frustum), "
@@ -639,13 +656,13 @@ def phase_driver(model, split: dict, work: str) -> dict:
           f"({stats['detections'] / stats['frustums']:.3f} a frustum), "
           f"{len(values)} after NMS in {len(files)} files, "
           f"{stats['overflow_reruns']} overflow re-runs")
-    print(f"[driver] end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
+    print(f"[{tag}] end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
           f"{stats['seconds']:.2f}s; steady-state "
           f"{stats['steady_frustums_per_s']:.1f} frustums/s")
-    print(f"[driver] car AP 2D/BEV/3D (easy, moderate, hard): "
+    print(f"[{tag}] car AP 2D/BEV/3D (easy, moderate, hard): "
           f"{ap['car']['detection']} {ap['car']['detection_ground']} "
           f"{ap['car']['detection_3d']}")
-    return counts
+    return {"counts": counts, "ap": ap["car"]}
 
 
 def labeled_batch(dataset, indices, num_scales: int) -> dict:
@@ -906,7 +923,7 @@ def phase_refine(work: str, stage1_weights: str, num_frames: int = 64) -> dict:
     from frustum_convnet_tpu_torch.data.provider_refine import FrustumRefineProvider
 
     t0 = time.time()
-    raw = os.path.join(work, "kitti")
+    raw = os.path.join(work, "kitti_raw")  # phase 5's split keeps work/kitti
     make_synthetic_kitti(raw, num_frames=num_frames, cars_per_frame=4, seed=SMOKE_SEED)
     stage1_pickles = os.path.join(work, "stage1_pickles")
     prepare.main(["--car_only", "--gen_train", "--gen_val", "--gen_val_rgb_detection",
@@ -1039,6 +1056,245 @@ def phase_families(device, work: str) -> dict:
     return out
 
 
+HALF = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _cuda_inputs(inputs, device):
+    pts, one_hot, refs = inputs
+    return pts.to(device), one_hot.to(device), [r.to(device) for r in refs]
+
+
+def phase_precision_forward(spec, device, model, dataset) -> None:
+    """The bfloat16 and float16 forward at batch 8, card against the port
+    on the CPU, under the scale-free bound of ``tests/test_torch_precision``:
+    the card's distance from the CPU at the half dtype is at most the CPU's
+    own distance from float32 (relative L2, each head output)."""
+    inputs = split_batch(dataset, range(8), spec.num_scales)
+    with torch.no_grad():
+        model.set_precision(None)
+        ref = model(*inputs)
+        for name, dtype in HALF.items():
+            model.set_precision(dtype)
+            cpu = model(*inputs)
+            model.to(device)
+            gpu = model(*_cuda_inputs(inputs, device))
+            model.cpu()
+            for out, c, g, r in zip(("cls_logits", "reg"), cpu, gpu, ref):
+                g = g.cpu()
+                if g.dtype != torch.float32 or g.shape != c.shape or not torch.isfinite(g).all():
+                    raise AssertionError(f"[precision] {name} {out}: {g.dtype} "
+                                         f"{tuple(g.shape)} or non-finite")
+                dist, bound = _rel(g, c), _rel(c, r)
+                if not dist <= bound:
+                    raise AssertionError(f"[precision] {name} {out}: card vs CPU "
+                                         f"{dist:.3e} over the bound {bound:.3e}")
+                print(f"[precision] {name} forward {out}: card vs CPU {dist:.3e}, "
+                      f"CPU {name} vs CPU float32 {bound:.3e} (the bound)")
+    model.set_precision(None)
+
+
+def _step_run(spec, base, batch, dev, **variant) -> tuple:
+    """(losses, per-leaf gradients) of one train step before the optimizer,
+    of ``base``'s weights in a model with ``variant``, on ``dev``."""
+    from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+    from frustum_convnet_tpu_torch.parallel import train_step as ts
+
+    m = FrustumConvNet(spec, **variant)
+    m.load_state_dict(base.state_dict())
+    m.to(dev)
+    losses, _ = ts.loss_and_grads(m, spec, ts.TrainStepConfig(compute_metrics=False),
+                                  ts.to_device(batch, dev))
+    return ({k: v.item() for k, v in losses.items()},
+            {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()})
+
+
+def phase_precision_steps(spec, device, model, dataset) -> None:
+    """One batch-8 train step of each variant, card against the CPU.
+
+    The half dtypes under a scale-free bound: the card's distance from the
+    CPU at the half dtype is at most twice the CPU's own distance from
+    float32, for the eight losses (a vector of relative deviations, each
+    loss by its own value: a single loss can land near its float32 value by
+    chance), for the gradient over all leaves and for each leaf. Twice,
+    not once as on the CPU against JAX: cuDNN and cuBLAS sum in other
+    orders than the CPU, so the card's half-precision roundings fall
+    independently of the CPU's, and two independent draws of one noise lie
+    sqrt(2) apart on average (measured on an H100: the float16 losses 1.5x,
+    the bfloat16 worst leaf 1.34x). The float32 variants (ghost BatchNorm
+    in groups of 4, FAST_BN, FAST_BN_FIRST, REMAT_POINTNET) under phase 8's
+    tolerances (losses rtol 1e-4, each leaf 5e-3 in relative L2)."""
+    batch = labeled_batch(dataset, range(8), spec.num_scales)
+    ref_losses, ref_grads = _step_run(spec, model, batch, "cpu")
+    names = sorted(ref_grads)
+
+    def flat(grads):
+        return torch.cat([grads[n].reshape(-1) for n in names])
+
+    for tag, variant in (("bfloat16", dict(dtype=torch.bfloat16)),
+                         ("float16", dict(dtype=torch.float16)),
+                         ("ghost 4 of 8", dict(bn_group=4)),
+                         ("FAST_BN", dict(fast_bn=True)),
+                         ("FAST_BN_FIRST", dict(fast_bn_first=True)),
+                         ("REMAT_POINTNET", dict(remat_pointnet=True))):
+        l_cpu, g_cpu = _step_run(spec, model, batch, "cpu", **variant)
+        l_card, g_card = _step_run(spec, model, batch, device, **variant)
+        if not (np.isfinite(list(l_card.values())).all()
+                and all(torch.isfinite(g).all() for g in g_card.values())):
+            raise AssertionError(f"[precision] {tag} step: non-finite loss or gradient")
+        keys = sorted(l_cpu)
+        worst = max((_rel(g_card[n], g_cpu[n]), n) for n in names)
+        if "dtype" in variant:
+            d_loss, b_loss = (float(np.linalg.norm([(a[k] - b[k]) / abs(b[k]) for k in keys]))
+                              for a, b in ((l_card, l_cpu), (l_cpu, ref_losses)))
+            d_grad, b_grad = _rel(flat(g_card), flat(g_cpu)), _rel(flat(g_cpu), flat(ref_grads))
+            leaf = max((_rel(g_card[n], g_cpu[n]) / max(_rel(g_cpu[n], ref_grads[n]), 1e-30), n)
+                       for n in names)
+            if not (d_loss <= 2 * b_loss and d_grad <= 2 * b_grad and leaf[0] <= 2.0):
+                raise AssertionError(
+                    f"[precision] {tag} step: losses {d_loss:.3e} (bound {b_loss:.3e}), "
+                    f"gradient {d_grad:.3e} (bound {b_grad:.3e}), worst leaf {leaf}")
+            print(f"[precision] {tag} step: card vs CPU losses {d_loss:.3e} (CPU vs float32 "
+                  f"{b_loss:.3e}), gradient {d_grad:.3e} ({b_grad:.3e}), worst leaf "
+                  f"{leaf[0]:.2f}x the CPU's distance ({leaf[1]}); bound 2x")
+        else:
+            d_loss = max(abs(l_card[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-6) for k in keys)
+            if d_loss > 1e-4 or worst[0] > 5e-3:
+                raise AssertionError(f"[precision] {tag} step: losses {d_loss:.3e}, "
+                                     f"worst leaf {worst}")
+            print(f"[precision] {tag} step: card vs CPU losses max rel {d_loss:.3e}, worst "
+                  f"leaf {worst[0]:.3e} ({worst[1]}); vs plain BatchNorm total loss "
+                  f"{l_cpu['total_loss']:.6f} / {ref_losses['total_loss']:.6f}")
+
+
+def phase_precision_device(spec, device, model, dataset) -> dict:
+    """For float32, bfloat16 and float16 at batch 32 (flagship, the
+    metric-free step on a batch already on the card): the step's device
+    time (the sum of its kernels' device times, ``torch.profiler``, over 8
+    steps) beside its time by CUDA events over 8 steps without the
+    profiler; and the peak ``torch.cuda.max_memory_allocated`` of one step
+    after a first one (Adam's state allocated), with and without
+    REMAT_POINTNET."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+    from frustum_convnet_tpu_torch.parallel import train_step as ts
+
+    batch = labeled_batch(dataset, range(32), spec.num_scales)
+    cfg = ts.TrainStepConfig(compute_metrics=False)
+    out = {}
+    for name, dtype in (("float32", None), *HALF.items()):
+        for remat in (False, True):
+            m = FrustumConvNet(spec, dtype=dtype, remat_pointnet=remat)
+            m.load_state_dict(model.state_dict())
+            m.to(device)
+            state = ts.TrainState(m, ts.make_optimizer(m.parameters(), cfg), ts.multistep_lr(cfg))
+            step = ts.build_train_step(spec, cfg)
+            b = ts.to_device(batch, device)
+            for _ in range(3):
+                step(state, b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            before = torch.cuda.memory_allocated(device)
+            step(state, b)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device)
+            rec = {"peak_bytes": peak, "step_bytes": peak - before}
+            if not remat:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(8):
+                    step(state, b)
+                end.record()
+                end.synchronize()
+                rec["ms_per_step"] = start.elapsed_time(end) / 8
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(8):
+                        step(state, b)
+                    torch.cuda.synchronize()
+                busy = sum(getattr(e, "self_device_time_total", 0) or 0
+                           for e in prof.key_averages())
+                rec["device_ms_per_step"] = busy / 8 / 1e3 if busy else None
+                rec["kernels_per_step"] = sum(e.count for e in prof.key_averages()) / 8
+            out[(name, remat)] = rec
+            del m, state, b
+            torch.cuda.empty_cache()
+        plain, rem = out[(name, False)], out[(name, True)]
+        device_ms = plain["device_ms_per_step"]
+        print(f"[precision] {name} step at batch 32 on prepared batches: "
+              f"{plain['ms_per_step']:.3f} ms (CUDA events), device busy "
+              f"{'not measured' if device_ms is None else f'{device_ms:.3f} ms'} over "
+              f"{plain['kernels_per_step']:.0f} kernels; peak memory "
+              f"{plain['peak_bytes'] / 2**20:.1f} MiB ({plain['step_bytes'] / 2**20:.1f} MiB "
+              f"over the state), with REMAT_POINTNET {rem['peak_bytes'] / 2**20:.1f} MiB "
+              f"({rem['step_bytes'] / 2**20:.1f} MiB)")
+    return out
+
+
+def phase_precision_trainer(work: str, pickle_dir: str, ap_f32, model, split) -> dict:
+    """The trainer at batch 32, full width, on phase 9's split: bfloat16
+    for 2 epochs of 32 steps, and float16 with TPU.F32_FINETUNE_EPOCHS 1
+    over 3 epochs (the switch logged at epoch 2); then ``engine.test.main``
+    at TPU.INFER_DTYPE bfloat16 on phase 5's split, its AP beside float32's.
+    Returns kernel 1's launches on each of these paths."""
+    from frustum_convnet_tpu_torch.engine import train as trainer
+
+    paths = {}
+    for tag, opts, epochs in (
+            ("training_bf16", ["TPU.COMPUTE_DTYPE", "bfloat16"], 2),
+            ("training_f16_f32_finetune", ["TPU.COMPUTE_DTYPE", "float16",
+                                           "TPU.F32_FINETUNE_EPOCHS", "1"], 3)):
+        out_dir = os.path.join(work, tag)
+        _reset_counts()
+        res = trainer.main(["--cfg", os.path.join(ROOT, "cfgs", "det_sample.yaml"),
+                            "--device", "cuda", "DATA.DATA_ROOT", pickle_dir,
+                            "OUTPUT_DIR", out_dir, "TRAIN.BATCH_SIZE", "32",
+                            "TEST.BATCH_SIZE", "32", "disp", "8", "USE_TFBOARD", "False",
+                            "TRAIN.MAX_EPOCH", str(epochs), *opts])
+        paths[tag] = _counts()["group_depth_point_multi"]
+        steps = sum(e["steps"] for e in res["epochs"])
+        losses = _logged_losses(os.path.join(out_dir, "train.log"))
+        if steps != 32 * epochs or paths[tag] < steps or not np.isfinite(losses).all():
+            raise AssertionError(f"[precision] {tag}: {steps} steps, {paths[tag]} kernel "
+                                 f"launches, losses {losses[:16]}")
+        dtypes = [e["dtype"] for e in res["epochs"]]
+        with open(os.path.join(out_dir, "train.log")) as f:
+            switched = "epoch 2: switching to float32 fine-tune steps" in f.read()
+        want = ["bfloat16"] * 2 if epochs == 2 else ["float16"] * 2 + ["float32"]
+        if dtypes != want or switched != (epochs == 3):
+            raise AssertionError(f"[precision] {tag}: epoch dtypes {dtypes}, switch "
+                                 f"logged {switched}")
+        for e in res["epochs"]:
+            print(f"[precision] {tag} epoch {e['epoch']} ({e['dtype']}): "
+                  f"{e['ms_per_step']:.3f} ms/step, {e['frustums_per_s']:.1f} frustums/s "
+                  f"(CUDA events); IoU_0.7 {e['prec']:.4f}")
+        print(f"[precision] {tag}: {paths[tag]} kernel launches, {len(losses)} logged "
+              f"losses, all finite{'; the float32 switch logged at epoch 2' if switched else ''}")
+    served = phase_driver(model, split, work, opts=["TPU.INFER_DTYPE", "bfloat16"],
+                          tag="precision serving bfloat16")
+    paths["serving_bf16"] = served["counts"]["group_depth_point_multi"]
+    for key in ("detection", "detection_3d"):
+        print(f"[precision] serving car AP {key} (easy, moderate, hard): bfloat16 "
+              f"{served['ap'][key]}, float32 (phase 5) {ap_f32[key]}")
+    return paths
+
+
+def phase_precision_profiler(prof_f32: dict) -> dict:
+    """``tools.profile_stages --dtype`` at batch 32 for bfloat16 and
+    float16, beside phase 7's float32: the forward and the forward+decode
+    ms."""
+    from frustum_convnet_tpu_torch.tools import profile_stages
+
+    times = {"float32": prof_f32}
+    for name in HALF:
+        times[name] = profile_stages.main(["--batch", "32", "--dtype", name])
+    for name, t in times.items():
+        print(f"[precision] profile_stages --dtype {name}: forward "
+              f"{t['forward only'] * 1e3:.3f} ms, forward+decode "
+              f"{t['full forward+decode'] * 1e3:.3f} ms, PointNet MLP stage "
+              f"{t['pointnet MLP stage (grouping precomputed)'] * 1e3:.3f} ms at batch 32")
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1081,12 +1337,13 @@ def main() -> int:
         # 4. model on the card against the port on the CPU
         phase_model(spec, device, model, dataset)
         # 5. the serving driver, through its CLI entry point
-        serve_counts = phase_driver(model, split, work)
+        served = phase_driver(model, split, work)
+        serve_counts = served["counts"]
         print(f"[driver] kernel launches on the serving path: {serve_counts}")
         # 6. kernels 2 and 3 against their plain versions
         modes = phase_modes(spec, device)
         # 7. the stage profiler, which runs kernels 1, 2 and 3
-        prof_launches = phase_profiler()
+        prof_launches, prof_times = phase_profiler()
 
         t0 = time.time()
         train_dir = os.path.join(work, "train_pickles")
@@ -1106,6 +1363,12 @@ def main() -> int:
         sunrgbd = phase_sunrgbd(work, num_frames=384)
         # 12. kernel 1 and the forward at the other families' shapes
         families = phase_families(device, work)
+        # 13. the precision and BatchNorm variants
+        phase_precision_forward(spec, device, model, dataset)
+        phase_precision_steps(spec, device, seeded_model(spec), train_ds)
+        phase_precision_device(spec, device, seeded_model(spec), train_ds)
+        precision = phase_precision_trainer(work, train_dir, served["ap"], model, split)
+        phase_precision_profiler(prof_times)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
@@ -1114,7 +1377,8 @@ def main() -> int:
     # each path's launches, counted from 0 just before it and read just after;
     # only kernel 1 runs on the drivers' paths
     paths = {"serving": serve_counts, "training": train["counts"]}
-    paths.update({k: {"group_depth_point_multi": v} for k, v in {**refine, **sunrgbd}.items()})
+    paths.update({k: {"group_depth_point_multi": v}
+                  for k, v in {**refine, **sunrgbd, **precision}.items()})
     records = []
     for name, launches, numbers in (
             ("group_depth_point_multi", train["counts"]["group_depth_point_multi"],

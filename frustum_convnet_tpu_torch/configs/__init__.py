@@ -3,8 +3,7 @@ dtype resolution.
 
 ``config`` and ``attrdict`` hold the key set, yaml merge and CLI overrides,
 ``models.registry.get_model_spec`` maps a config to its ``DetModelSpec``, and
-``dtypes`` resolves the ``cfg.TPU`` dtype keys to torch dtypes (float32 only
-so far) and refuses the training variants that are not ported yet.
+``dtypes`` resolves the ``cfg.TPU`` dtype keys to torch dtypes.
 """
 
 from frustum_convnet_tpu_torch.configs.config import (
@@ -16,9 +15,7 @@ from frustum_convnet_tpu_torch.configs.config import (
     reset_cfg,
 )
 from frustum_convnet_tpu_torch.configs.dtypes import (
-    check_train_supported,
     get_compute_dtype,
-    get_infer_dtype,
     get_points_upload_dtype,
     get_trunk_dtype,
 )
@@ -33,8 +30,6 @@ __all__ = [
     "reset_cfg",
     "get_model_spec",
     "get_compute_dtype",
-    "get_infer_dtype",
     "get_trunk_dtype",
     "get_points_upload_dtype",
-    "check_train_supported",
 ]

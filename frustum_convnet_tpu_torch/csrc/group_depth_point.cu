@@ -16,7 +16,8 @@
 //     |z_p - z_q| < dis_z, compared in float32;
 //   * slots past the hit count repeat the first hit; a section with no hit
 //     selects point 0 in every slot;
-//   * cnt = min(hits, K) as int32;
+//   * cnt = min(hits, K) as int32; K may exceed N (every slot past the
+//     hits, N.. included, takes the first hit);
 //   * grouped (B, M_i, K_i, C) = the selected points' channels, with the
 //     section center subtracted from xyz.
 //

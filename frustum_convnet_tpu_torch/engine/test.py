@@ -13,6 +13,9 @@ forward, the section ladders rebuilt on the device from 6 floats per frustum,
 the point stream uploaded as float16 and decoded to float32 on the device,
 and only the compacted foreground sections brought back (a batch whose
 foreground count overflows the cap re-runs through the full decode). The
+model computes in ``TPU.INFER_DTYPE`` (its trunk and heads in
+``TPU.TRUNK_DTYPE``) after the float32 grouping; decode and the host
+postprocess take its heads' outputs, which are at least float32. The
 mesh, multi-process and all-gather branches of the JAX driver are not
 ported yet. The numpy post-processing (foreground selection, box decode,
 packing for the writer) is carried over from the JAX driver, whose module
@@ -55,7 +58,7 @@ def build_infer_fn(model, spec):
 
     @torch.inference_mode()
     def infer(pts, one_hot, refs):
-        # pts may arrive in the reduced upload dtype; the model computes f32
+        # pts may arrive in the reduced upload dtype: kernel 1 takes float32
         cls_logits, reg = model(pts.float(), one_hot, list(refs))
         return decode_outputs(spec, cls_logits, reg, refs[1])
 
@@ -394,8 +397,8 @@ def main(argv=None):
     if args.opts:
         configs.merge_cfg_from_list(args.opts, cfg)
     configs.assert_and_infer_cfg(cfg)
-    configs.get_infer_dtype(cfg)  # float32 only: raises on half precision
-    configs.get_trunk_dtype(cfg)
+    dtype = configs.get_compute_dtype(cfg, train=False)
+    trunk_dtype = configs.get_trunk_dtype(cfg)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -406,7 +409,7 @@ def main(argv=None):
     logger = get_logger(os.path.join(result_dir, "test.log"))
 
     spec = configs.get_model_spec(cfg)
-    model = FrustumConvNet(spec)
+    model = FrustumConvNet(spec, dtype=dtype, trunk_dtype=trunk_dtype)
     model.reset_parameters(torch.Generator().manual_seed(INIT_SEED))
     model.to(device).eval()
     dataset = make_dataset(cfg)

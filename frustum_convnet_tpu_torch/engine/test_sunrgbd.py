@@ -12,7 +12,9 @@ convert to 8-corner form, optional 3D NMS, then in-process VOC AP at 3D IoU
 The pipelining is the JAX driver's: BatchLoader threads prepare batches
 ahead, G batches go to the device as one flattened forward (the tail group
 padded by repeating its last batch), and up to ``inflight`` groups queue on
-the device while the host post-processes finished ones. The mesh and
+the device while the host post-processes finished ones. The model computes
+in ``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``, as in ``engine/test.py``.
+The mesh and
 multi-process branches of the JAX driver are not ported yet.
 """
 
@@ -63,7 +65,7 @@ def build_infer_group_flat_fn(model, spec):
             return x.reshape((g * b,) + tuple(x.shape[2:]))
 
         refs = [flat(r) for r in refs_g]
-        # pts may arrive in the reduced upload dtype; the model computes f32
+        # pts may arrive in the reduced upload dtype: kernel 1 takes float32
         cls_logits, reg = model(flat(pts_g).float(), flat(one_hot_g), refs)
         out = decode_outputs(spec, cls_logits, reg, refs[1])
         return {k: v.reshape((g, b) + tuple(v.shape[1:])) for k, v in out.items()}
@@ -222,8 +224,8 @@ def main(argv=None):
     if args.opts:
         configs.merge_cfg_from_list(args.opts, cfg)
     configs.assert_and_infer_cfg(cfg)
-    configs.get_infer_dtype(cfg)  # float32 only: raises on half precision
-    configs.get_trunk_dtype(cfg)
+    dtype = configs.get_compute_dtype(cfg, train=False)
+    trunk_dtype = configs.get_trunk_dtype(cfg)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -234,7 +236,7 @@ def main(argv=None):
     logger = get_logger(os.path.join(result_dir, "test.log"))
 
     spec = configs.get_model_spec(cfg)
-    model = FrustumConvNet(spec)
+    model = FrustumConvNet(spec, dtype=dtype, trunk_dtype=trunk_dtype)
     model.reset_parameters(torch.Generator().manual_seed(INIT_SEED))
     model.to(device).eval()
     dataset = FrustumSunrgbdProvider(

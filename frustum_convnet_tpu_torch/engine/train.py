@@ -14,12 +14,17 @@ As in the JAX driver:
   once per epoch; the host syncs mid-epoch only at disp intervals, where a
   non-finite loss aborts the run;
 * the train loader shuffles and drops the last partial batch; the val
-  loader keeps it and runs it as it is.
+  loader keeps it and runs it as it is;
+* the model computes in ``TPU.COMPUTE_DTYPE`` (its trunk and heads in
+  ``TPU.TRUNK_DTYPE``) with ``TPU.{BN_GROUP_SIZE, FAST_BN, FAST_BN_FIRST,
+  REMAT_POINTNET}``; parameters, BatchNorm statistics and Adam state stay
+  float32, and the validation epochs run the training dtype;
+* ``TPU.F32_FINETUNE_EPOCHS`` N > 0 with a half-precision compute dtype
+  computes fully in float32 (no trunk dtype) from epoch
+  ``max(MAX_EPOCH - N, 0)`` on: the same model, parameters, Adam moments
+  and schedule count.
 
-The mesh, multi-process and ghost/analytic BatchNorm branches are not
-ported yet (``configs.check_train_supported`` raises on the latter).
-``TPU.F32_FINETUNE_EPOCHS`` is moot: it switches a half-precision run to
-float32 for its last epochs, and the port computes in float32 only.
+The mesh and multi-process branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -136,11 +141,16 @@ def run_epoch_train(step: _Step, state: TrainState, accum, loader, epoch,
             vals = {k: float(v) for k, v in {**losses, **metrics}.items()}
             line = " ".join(f"{k} {v:.4f}" for k, v in vals.items())
             logger.info(f"epoch {epoch} it {i + 1}/{len(loader)} {line}")
-            # fail loudly on a numeric blow-up; piggybacks on the
-            # disp-interval sync, costing nothing extra
+            # fail loudly on a numeric blow-up (the half-precision overflow
+            # class); piggybacks on the disp-interval sync, costing nothing
+            # extra
             if not np.isfinite(vals.get("total_loss", 0.0)):
                 raise RuntimeError(
-                    f"non-finite total_loss at epoch {epoch} it {i + 1}: {vals}")
+                    f"non-finite total_loss at epoch {epoch} it {i + 1}: "
+                    f"{vals} — with TPU.COMPUTE_DTYPE=float16 this is the "
+                    f"weight-gradient overflow hazard (see configs/config.py "
+                    f"COMPUTE_DTYPE); use float32/bfloat16 or the "
+                    f"F32_FINETUNE_EPOCHS schedule")
     seconds = 0.0
     if clock is not None:
         clock.stop()
@@ -186,8 +196,8 @@ def make_datasets(cfg):
 
 def main(argv=None):
     """Run the driver. Returns {"state": the final TrainState, "start_epoch",
-    "best_prec", "best_epoch", "epochs": [{"epoch", "prec", **train stats}],
-    "output_dir"}."""
+    "best_prec", "best_epoch", "epochs": [{"epoch", "prec", "dtype" (the
+    epoch's compute dtype), **train stats}], "output_dir"}."""
     parser = argparse.ArgumentParser(description="Train FrustumConvNet (PyTorch)")
     parser.add_argument("--cfg", dest="cfg_file", required=True)
     parser.add_argument("--device", default="cuda",
@@ -200,7 +210,8 @@ def main(argv=None):
     if args.opts:
         configs.merge_cfg_from_list(args.opts, cfg)
     configs.assert_and_infer_cfg(cfg)
-    configs.check_train_supported(cfg)
+    compute_dtype = configs.get_compute_dtype(cfg, train=True)
+    trunk_dtype = configs.get_trunk_dtype(cfg)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -217,7 +228,11 @@ def main(argv=None):
     torch.manual_seed(seed)
 
     spec = configs.get_model_spec(cfg)
-    model = FrustumConvNet(spec)
+    model = FrustumConvNet(spec, dtype=compute_dtype, trunk_dtype=trunk_dtype,
+                           fast_bn=cfg.TPU.FAST_BN,
+                           fast_bn_first=cfg.TPU.FAST_BN_FIRST,
+                           remat_pointnet=cfg.TPU.REMAT_POINTNET,
+                           bn_group=cfg.TPU.BN_GROUP_SIZE)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.to(device)
 
@@ -286,9 +301,24 @@ def main(argv=None):
         result.update(best_prec=best_prec, best_epoch=best_epoch)
         return result
 
+    # the final F32_FINETUNE_EPOCHS epochs of a half-precision run compute
+    # fully in float32; the state and the schedule carry straight on
+    ft_start = None
+    if cfg.TPU.F32_FINETUNE_EPOCHS > 0 and compute_dtype != torch.float32:
+        ft_start = max(cfg.TRAIN.MAX_EPOCH - cfg.TPU.F32_FINETUNE_EPOCHS, 0)
+
     step = _Step(train_fn, device, fast_fn=fast_fn, loss_keys=det.LOSS_KEYS)
     for epoch in range(start_epoch, cfg.TRAIN.MAX_EPOCH):
         t0 = time.time()
+        finetune = ft_start is not None and epoch >= ft_start
+        if finetune and epoch == ft_start:
+            logger.info(f"epoch {epoch}: switching to float32 fine-tune "
+                        f"steps (TPU.F32_FINETUNE_EPOCHS="
+                        f"{cfg.TPU.F32_FINETUNE_EPOCHS})")
+        if finetune:
+            model.set_precision(torch.float32)
+        else:
+            model.set_precision(compute_dtype, trunk_dtype)
         _, stats = run_epoch_train(step, state, init_accum(accum_keys, device),
                                    train_loader, epoch, logger, writer,
                                    cfg.disp, metric_interval=metric_interval)
@@ -303,7 +333,8 @@ def main(argv=None):
                     f"{iou_key}={prec:.4f} best={best_prec:.4f}@{best_epoch}")
         ckpt.maybe_save_epoch(output_dir, state, epoch, cfg.TRAIN.MAX_EPOCH,
                               best_prec, best_epoch, is_best)
-        result["epochs"].append({"epoch": epoch, "prec": prec, **stats})
+        result["epochs"].append({"epoch": epoch, "prec": prec,
+                                 "dtype": str(model.dtype).split(".")[-1], **stats})
     logger.info(f"training done; best {iou_key}={best_prec:.4f} at epoch {best_epoch}")
     result.update(best_prec=best_prec, best_epoch=best_epoch)
     return result

@@ -2,6 +2,7 @@
 
 Counterpart of ``frustum_convnet_tpu/models/net.py`` (``FrustumConvNet``,
 ``PointNetScale``, ``DenseBNReLU``, ``ConvBNReLU``, ``DeConvBNReLU``,
+``TorchBN``, ``GhostBN``, ``_StatsBN``, ``_f16_dense_dot``,
 ``slice_reg_output``). Parameters are named in the reference state-dict
 layout that ``tools/export_reference_checkpoint.map_to_torch`` emits, so a
 reference ``.pth`` loads with ``load_state_dict(strict=True)``:
@@ -25,8 +26,20 @@ outputs (B, L, 2) and (B, L, R). The model follows ``module.train()`` and
   ``_bn``). The slot pool routes the gradient to the first tied slot
   (``slot_max_pool``, ``net.py:109-131``).
 
-GhostBN, FAST_BN, REMAT_POINTNET and half precision are not ported
-(``configs.check_train_supported`` raises on them).
+Precision, as Flax's ``dtype`` does it (explicit casts, no autocast):
+parameters, BatchNorm statistics and optimizer state stay in their own dtype
+(float32) in every mode. A Dense or conv casts its input and weight to the
+compute dtype at the call; BatchNorm computes its statistics and the
+normalize in ``promote(float32, dtype)`` and casts the result back; ReLU,
+the empty-section mask and the pool run in the compute dtype; the trunk and
+heads may run in their own dtype; the heads' outputs are at least float32.
+Under float16 every PointNet Dense (and the heads, under a float16 trunk)
+runs ``_F16DenseDot``, whose weight gradient is summed and stored in float32.
+
+Train-mode variants (``cfg.TPU``): ghost BatchNorm over groups of the batch
+(``BN_GROUP_SIZE``, every BatchNorm), analytic statistics from the layer
+input (``FAST_BN``, ``FAST_BN_FIRST``, PointNet Denses only, not under
+ghost BatchNorm) and rematerialized PointNet scales (``REMAT_POINTNET``).
 """
 
 from __future__ import annotations
@@ -36,39 +49,125 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from frustum_convnet_tpu_torch.models.spec import DetModelSpec
 from frustum_convnet_tpu_torch.ops.select_cuda import (group_depth_point_auto,
                                                        group_depth_point_multi_auto)
 
 
-def _bn(x: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d, dim: int):
+class _F16DenseDot(torch.autograd.Function):
+    """``y = x @ w^T`` for float16 ``x`` and a float32 (O, I) weight ``w``,
+    cast inside the op (``_f16_dense_dot``, ``net.py:58-83``).
+
+    y and dx are float16. dW = g2^T x2 reduces over every batch row, where
+    float16 overflows, so it is summed and stored in float32: the product
+    of two float16 values is exact in float32, so upcasting both operands
+    gives what ``preferred_element_type=float32`` gives."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return F.linear(x, w.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = g @ w.to(g.dtype)
+        if ctx.needs_input_grad[1]:
+            g2 = g.reshape(-1, g.shape[-1]).to(w.dtype)
+            x2 = x.reshape(-1, x.shape[-1]).to(w.dtype)
+            dw = g2.T @ x2
+        return dx, dw
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype | None,
+           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Channels-last ``x @ w^T (+ bias)`` in ``dtype`` (None: ``w``'s).
+    float16 takes ``_F16DenseDot`` and keeps the bias float32, so the output
+    is float32 there (``_f16_promote_bias``, ``net.py:93-100``)."""
+    if dtype == torch.float16:
+        y = _F16DenseDot.apply(x.to(dtype), w)
+        return y if bias is None else y + bias
+    dt = w.dtype if dtype is None else dtype
+    return F.linear(x.to(dt), w.to(dt), None if bias is None else bias.to(dt))
+
+
+def _update_running(bn, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+    """``r = (1 - momentum) * r + momentum * s`` with the variance
+    Bessel-corrected over ``n`` values (``_bessel``, ``net.py:145-152``)."""
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(m * mean)
+        bn.running_var.mul_(1.0 - m).add_(m * (var * (n / max(n - 1, 1))))
+
+
+def _normalize(yt: torch.Tensor, bn, mean, var, shape) -> torch.Tensor:
+    """``(y - mean) * (rsqrt(var + eps) * scale) + bias``, the JAX package's
+    operation order, with the statistics reshaped to ``shape``."""
+    inv = torch.reciprocal(torch.sqrt(var + bn.eps)) * bn.weight
+    return (yt - mean.reshape(shape)) * inv.reshape(shape) + bn.bias.reshape(shape)
+
+
+def _bn(y: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d, dim: int,
+        group: int = 0, update: bool = True) -> torch.Tensor:
     """BatchNorm over channel axis ``dim`` (1 or -1), in ``bn``'s mode, with
     the JAX package's operation order (``TorchBN``, ``net.py:178-195``):
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``.
+    ``(y - mean) * (rsqrt(var + eps) * scale) + bias`` in
+    ``promote(float32, y.dtype)``, cast back to ``y``'s dtype.
 
     Eval normalizes with the running statistics. Train normalizes with the
-    batch mean and biased variance (``torch.var_mean``) and updates the
-    running statistics in place: ``r = (1 - momentum) * r + momentum * s``,
-    with the variance Bessel-corrected over ``n = numel // C`` values. The
-    CPU's fused ``F.batch_norm`` backward loses up to ~10% of a float32
+    batch mean and biased variance (``torch.var_mean``) and, if ``update``,
+    updates the running statistics in place over ``n = numel // C`` values.
+    The CPU's fused ``F.batch_norm`` backward loses up to ~10% of a float32
     gradient leaf at flagship width against float64; this form stays
-    within ~1e-3.
+    within ~1e-3. With ``group`` > 0 in train mode it is ``GhostBN``
+    (``_ghost_bn``).
     """
-    shape = [1] * x.dim()
+    if bn.training and group > 0:
+        return _ghost_bn(y, bn, dim, group, update)
+    yt = y.to(torch.promote_types(torch.float32, y.dtype))
+    shape = [1] * y.dim()
     shape[dim] = -1
     if bn.training:
-        axes = [d for d in range(x.dim()) if d != dim % x.dim()]
-        var, mean = torch.var_mean(x, dim=axes, correction=0)
-        with torch.no_grad():
-            n = x.numel() // x.shape[dim]
-            m = bn.momentum
-            bn.running_mean.mul_(1.0 - m).add_(m * mean)
-            bn.running_var.mul_(1.0 - m).add_(m * (var * (n / max(n - 1, 1))))
+        axes = [d for d in range(y.dim()) if d != dim % y.dim()]
+        var, mean = torch.var_mean(yt, dim=axes, correction=0)
+        if update:
+            _update_running(bn, mean, var, y.numel() // y.shape[dim])
     else:
-        mean, var = bn.running_mean, bn.running_var
+        mean, var = (s.to(yt.dtype) for s in (bn.running_mean, bn.running_var))
+    return _normalize(yt, bn, mean, var, shape).to(y.dtype)
+
+
+def _ghost_bn(y: torch.Tensor, bn, dim: int, group: int,
+              update: bool) -> torch.Tensor:
+    """Train-mode BatchNorm with per-group statistics (``GhostBN``,
+    ``net.py:233-288``): dim 0 splits into B/group groups, each normalized
+    with its own biased ``mean2 - mean^2`` statistics; the running
+    statistics take the mean of the groups' over ``n_group`` values a group.
+    The reference's multi-GPU DataParallel semantics, with ``group`` the
+    per-GPU batch."""
+    b = y.shape[0]
+    if b % group:
+        raise ValueError(f"batch {b} not divisible by BN group {group}")
+    g = b // group
+    yg = y.to(torch.promote_types(torch.float32, y.dtype)).reshape(
+        (g, group) + tuple(y.shape[1:]))
+    cdim = dim % y.dim() + 1
+    axes = [d for d in range(1, yg.dim()) if d != cdim]
+    mean = yg.mean(dim=axes)  # (g, C)
+    var = torch.clamp((yg * yg).mean(dim=axes) - mean * mean, min=0.0)
+    if update:
+        _update_running(bn, mean.mean(0), var.mean(0), y.numel() // (y.shape[dim] * g))
+    shape = [g] + [1] * (yg.dim() - 1)
+    shape[cdim] = -1
     inv = torch.reciprocal(torch.sqrt(var + bn.eps)) * bn.weight
-    return (x - mean.view(shape)) * inv.view(shape) + bn.bias.view(shape)
+    cshape = [1] * yg.dim()
+    cshape[cdim] = -1
+    out = (yg - mean.reshape(shape)) * inv.reshape(shape) + bn.bias.reshape(cshape)
+    return out.reshape(y.shape).to(y.dtype)
 
 
 def slot_max_pool(x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -86,38 +185,72 @@ def slot_max_pool(x: torch.Tensor, train: bool) -> torch.Tensor:
 
 class DenseBNReLU(nn.Sequential):
     """1x1 conv + BN + ReLU on channels-last (..., C): the (O, I, 1, 1)
-    weight is applied with ``F.linear``."""
+    weight is applied with ``F.linear`` in ``self.dtype`` (None: the
+    weight's), which ``FrustumConvNet.set_precision`` sets.
 
-    def __init__(self, cin: int, cout: int):
+    ``fast_stats`` (train mode, no ghost BatchNorm): the batch statistics
+    come from the layer input (``DenseBNReLU``, ``net.py:320-352``): with
+    W^T the (I, O) kernel, mean = mu_x W^T and var = sum((cov W^T) * W^T,
+    axis 0), cov the centred (I, I) input covariance, in
+    ``promote(float32, x.dtype)``; the running statistics count the rows."""
+
+    def __init__(self, cin: int, cout: int, fast_stats: bool = False,
+                 bn_group: int = 0):
         super().__init__(nn.Conv2d(cin, cout, 1, bias=False),
                          nn.BatchNorm2d(cout, eps=1e-5))
+        self.dtype, self.fast_stats, self.bn_group = None, fast_stats, bn_group
 
-    def forward(self, x):
+    def forward(self, x, update: bool = True):
         conv, bn = self[0], self[1]
-        y = F.linear(x, conv.weight.view(conv.out_channels, conv.in_channels))
-        return F.relu(_bn(y, bn, -1))
+        w = conv.weight.view(conv.out_channels, conv.in_channels)
+        y = _dense(x, w, self.dtype)
+        if not (bn.training and self.fast_stats and self.bn_group == 0):
+            return F.relu(_bn(y, bn, -1, self.bn_group, update))
+        stat = torch.promote_types(torch.float32, x.dtype)
+        wt = w.to(stat).T  # (I, O), the JAX kernel
+        xf = x.to(stat).reshape(-1, x.shape[-1])
+        rows = xf.shape[0]
+        mu = xf.mean(dim=0)
+        mean = mu @ wt
+        cov = (xf.T @ xf) / rows - torch.outer(mu, mu)
+        var = ((cov @ wt) * wt).sum(dim=0)
+        if update:
+            _update_running(bn, mean, var, rows)
+        yt = y.to(torch.promote_types(torch.float32, y.dtype))
+        return F.relu(_normalize(yt, bn, mean, var, [-1]).to(y.dtype))
 
 
 class ConvBNReLU(nn.Sequential):
-    """k-tap 1D conv + BN + ReLU over channels-first (B, C, L)."""
+    """k-tap 1D conv + BN + ReLU over channels-first (B, C, L), in
+    ``self.dtype`` (None: the weight's)."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int, pad: int):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, pad: int,
+                 bn_group: int = 0):
         super().__init__(nn.Conv1d(cin, cout, kernel, stride, pad, bias=False),
                          nn.BatchNorm1d(cout, eps=1e-5))
+        self.dtype, self.bn_group = None, bn_group
 
     def forward(self, x):
-        return F.relu(_bn(self[0](x), self[1], 1))
+        conv, bn = self[0], self[1]
+        dt = conv.weight.dtype if self.dtype is None else self.dtype
+        y = F.conv1d(x.to(dt), conv.weight.to(dt), None, conv.stride, conv.padding)
+        return F.relu(_bn(y, bn, 1, self.bn_group))
 
 
 class DeConvBNReLU(nn.Sequential):
-    """Transposed 1D conv (exact x``stride`` upsampler) + BN + ReLU."""
+    """Transposed 1D conv (exact x``stride`` upsampler) + BN + ReLU, in
+    ``self.dtype`` (None: the weight's)."""
 
-    def __init__(self, cin: int, cout: int, kernel: int):
+    def __init__(self, cin: int, cout: int, kernel: int, bn_group: int = 0):
         super().__init__(nn.ConvTranspose1d(cin, cout, kernel, kernel, bias=False),
                          nn.BatchNorm1d(cout, eps=1e-5))
+        self.dtype, self.bn_group = None, bn_group
 
     def forward(self, x):
-        return F.relu(_bn(self[0](x), self[1], 1))
+        conv, bn = self[0], self[1]
+        dt = conv.weight.dtype if self.dtype is None else self.dtype
+        y = F.conv_transpose1d(x.to(dt), conv.weight.to(dt), None, conv.stride)
+        return F.relu(_bn(y, bn, 1, self.bn_group))
 
 
 class PointNetScale(nn.Module):
@@ -127,17 +260,27 @@ class PointNetScale(nn.Module):
     groups for itself (``net.py:428-430``): ``points`` or its xyz, by
     ``use_feature``, through ``group_depth_point_auto`` with this scale's
     ``dist`` and ``nsample``. ``FrustumConvNet`` passes the (grouped, cnt)
-    of its one multi-scale launch instead. The zero mask for sections with
-    no hit comes after the MLP and before the pool (``net.py:438-440``), so
-    their index-0 duplicates still enter the BatchNorm statistics.
+    of its one multi-scale launch instead. The grouped points stay float32;
+    the first Dense casts them. The zero mask for sections with no hit comes
+    after the MLP and before the pool (``net.py:438-440``), so their index-0
+    duplicates still enter the BatchNorm statistics.
+
+    With ``remat`` in train mode the MLP, mask and pool run under
+    ``torch.utils.checkpoint``: their activations are recomputed in the
+    backward instead of saved (``nn.checkpoint``, ``net.py:509-510``). The
+    recompute skips the running-statistics update, so a step updates them
+    once, as JAX does.
     """
 
     def __init__(self, cin: int, mlp, dist: float, nsample: int,
-                 use_feature: bool):
+                 use_feature: bool, fast_bn: bool = False, fast_bn_first: bool = False,
+                 bn_group: int = 0, remat: bool = False):
         super().__init__()
         self.dist, self.nsample, self.use_feature = dist, nsample, use_feature
+        self.remat = remat
         for j, width in enumerate(mlp):
-            self.add_module(f"conv{j + 1}", DenseBNReLU(cin, width))
+            self.add_module(f"conv{j + 1}", DenseBNReLU(
+                cin, width, fast_bn or (j == 0 and fast_bn_first), bn_group))
             cin = width
 
     def forward(self, points, ref, grouped=None):
@@ -145,16 +288,38 @@ class PointNetScale(nn.Module):
             feats = points if self.use_feature else points[..., :3].contiguous()
             grouped = group_depth_point_auto(feats, ref, self.dist, self.nsample)
         g, cnt = grouped
+        if not (self.remat and self.training):
+            return self._mlp_pool(g, cnt, True)
+        first = [True]
+
+        def run(g):
+            update, first[0] = first[0], False  # the recompute updates nothing
+            return self._mlp_pool(g, cnt, update)
+
+        return checkpoint(run, g, use_reentrant=False)
+
+    def _mlp_pool(self, g, cnt, update: bool):
         for layer in self.children():
-            g = layer(g)
+            g = layer(g, update)
         g = g.masked_fill((cnt == 0)[..., None, None], 0.0)
         return slot_max_pool(g, self.training)  # (B, M, mlp[-1])
 
 
 class FrustumConvNet(nn.Module):
-    """The full detector. Returns (cls_logits (B, L, 2), reg (B, L, R))."""
+    """The full detector. Returns (cls_logits (B, L, 2), reg (B, L, R)).
 
-    def __init__(self, spec: DetModelSpec):
+    ``dtype`` is the computation dtype (None: the parameters', so a model
+    cast to float64 computes in float64); ``trunk_dtype`` the conv trunk's
+    and heads' (None: ``dtype``). Both can change between steps
+    (``set_precision``) with the same parameters. ``fast_bn``,
+    ``fast_bn_first``, ``remat_pointnet`` and ``bn_group`` are
+    ``cfg.TPU.{FAST_BN, FAST_BN_FIRST, REMAT_POINTNET, BN_GROUP_SIZE}``.
+    """
+
+    def __init__(self, spec: DetModelSpec, dtype: torch.dtype | None = None,
+                 trunk_dtype: torch.dtype | None = None, fast_bn: bool = False,
+                 fast_bn_first: bool = False, remat_pointnet: bool = False,
+                 bn_group: int = 0):
         super().__init__()
         self.spec = s = spec
         pn_in = 3 + (s.extra_feat_dim if s.use_extra_feature else 0)
@@ -162,23 +327,40 @@ class FrustumConvNet(nn.Module):
         for i in range(s.num_scales):
             self.feat_net.add_module(
                 f"pointnet{i + 1}",
-                PointNetScale(pn_in, s.mlps[i], s.height_half[i],
-                              s.nsamples[i], s.use_extra_feature))
+                PointNetScale(pn_in, s.mlps[i], s.height_half[i], s.nsamples[i],
+                              s.use_extra_feature, fast_bn=fast_bn,
+                              fast_bn_first=fast_bn_first, bn_group=bn_group,
+                              remat=remat_pointnet))
         scale_ch = [m[-1] + s.num_vec for m in s.mlps]
         ch = s.block_channels
         self.conv_net = nn.Module()
         add = self.conv_net.add_module
-        add("block1_conv1", ConvBNReLU(scale_ch[0], ch[0], 3, 1, 1))
+        kw = dict(bn_group=bn_group)
+        add("block1_conv1", ConvBNReLU(scale_ch[0], ch[0], 3, 1, 1, **kw))
         for b in range(1, len(ch)):
-            add(f"block{b + 1}_conv1", ConvBNReLU(ch[b - 1], ch[b], 3, 2, 1))
-            add(f"block{b + 1}_conv2", ConvBNReLU(ch[b], ch[b], 3, 1, 1))
+            add(f"block{b + 1}_conv1", ConvBNReLU(ch[b - 1], ch[b], 3, 2, 1, **kw))
+            add(f"block{b + 1}_conv2", ConvBNReLU(ch[b], ch[b], 3, 1, 1, **kw))
             add(f"block{b + 1}_merge",
-                ConvBNReLU(ch[b] + scale_ch[b], ch[b], 1, 1, 0))
+                ConvBNReLU(ch[b] + scale_ch[b], ch[b], 1, 1, 0, **kw))
         for b in range(1, len(ch)):
             add(f"block{b + 1}_deconv",
-                DeConvBNReLU(ch[b], s.deconv_channels, 2 ** (b - 1)))
+                DeConvBNReLU(ch[b], s.deconv_channels, 2 ** (b - 1), **kw))
         self.cls_out = nn.Conv1d(s.head_channels, s.num_classes, 1)
         self.reg_out = nn.Conv1d(s.head_channels, s.reg_size, 1)
+        self.set_precision(dtype, trunk_dtype)
+
+    def set_precision(self, dtype: torch.dtype | None = None,
+                      trunk_dtype: torch.dtype | None = None) -> None:
+        """Compute in ``dtype``, the trunk and heads in ``trunk_dtype``
+        (None: ``dtype``), from the next forward on; the parameters keep
+        their dtype."""
+        self.dtype = dtype
+        self.trunk_dtype = dtype if trunk_dtype is None else trunk_dtype
+        for scale in self.feat_net.children():
+            for layer in scale.children():
+                layer.dtype = dtype
+        for block in self.conv_net.children():
+            block.dtype = self.trunk_dtype
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -216,12 +398,15 @@ class FrustumConvNet(nn.Module):
         groups = group_depth_point_multi_auto(
             feats, list(refs), list(s.height_half), list(s.nsamples))
 
-        scale_feats = []  # channels-first (B, C_i + num_vec, M_i)
+        td = self.trunk_dtype
+        scale_feats = []  # channels-first (B, C_i + num_vec, M_i), in td
         for i, grouped in enumerate(groups):
             f = getattr(self.feat_net, f"pointnet{i + 1}")(points, refs[i],
                                                             grouped)
+            # the one-hot in the feature dtype, so the concat keeps it
             oh = one_hot.to(f.dtype)[:, None, :].expand(-1, f.shape[1], -1)
-            scale_feats.append(torch.cat([f, oh], dim=-1).transpose(1, 2))
+            f = torch.cat([f, oh], dim=-1)
+            scale_feats.append((f if td is None else f.to(td)).transpose(1, 2))
 
         net = self.conv_net
         ch = s.block_channels
@@ -239,9 +424,11 @@ class FrustumConvNet(nn.Module):
                for b, lat in enumerate(laterals)]
         x = torch.cat(ups, dim=1).transpose(1, 2)  # (B, L, head_channels)
 
-        cls_logits = F.linear(x, self.cls_out.weight[:, :, 0], self.cls_out.bias)
-        reg = F.linear(x, self.reg_out.weight[:, :, 0], self.reg_out.bias)
-        return cls_logits, reg
+        cls_logits = _dense(x, self.cls_out.weight[:, :, 0], td, self.cls_out.bias)
+        reg = _dense(x, self.reg_out.weight[:, :, 0], td, self.reg_out.bias)
+        # never below float32; a float64 model stays float64
+        out = torch.promote_types(torch.float32, cls_logits.dtype)
+        return cls_logits.to(out), reg.to(out)
 
 
 def slice_reg_output(reg: torch.Tensor, spec: DetModelSpec):

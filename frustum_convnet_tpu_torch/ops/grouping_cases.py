@@ -97,6 +97,18 @@ def edge_cases(seed: int = 3) -> dict:
             for m in (30, 11)]
     cases["odd_spans_n201"] = (pts, refs, [1.5, 3.0], [5, 7])
 
+    # nsample above the point count (the reference's scan allows it; the
+    # slots past the hits, N.. included, take the first hit): sections with
+    # no hit, some hits and every point a hit, K a multiple of 4 and not,
+    # mixed with scales whose K <= N
+    zp = rng.uniform(0, 10, (2, 100)).astype(np.float32)
+    zr = np.sort(rng.uniform(-1, 11, (2, 24)).astype(np.float32), axis=1)
+    zr[:, 0], zr[:, -1] = 5.0, 40.0  # every point / no point in the window
+    cases["k_above_n_n100"] = (_points(rng, zp, 3), [_refs(rng, zr)], [6.0], [160])
+    pts = rng.uniform(-3, 8, (2, 201, 6)).astype(np.float32)
+    refs = [np.sort(rng.uniform(0, 8, (2, m, 3)).astype(np.float32), axis=1)
+            for m in (20, 10, 5)]
+    cases["k_above_n_n201_c6"] = (pts, refs, [0.4, 1.6, 6.4], [64, 256, 301])
     return cases
 
 

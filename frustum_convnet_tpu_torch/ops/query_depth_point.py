@@ -11,12 +11,14 @@ slot. The count is ``min(hits, nsample)`` as int32.
 The selection is the JAX package's top-k of unique keys: ``key(n) = n`` for a
 hit and ``n + N`` otherwise, so the ``nsample`` smallest keys are exactly the
 first hits in storage order, and ``torch.topk(sorted=True)`` returns them
-ascending.
+ascending. ``nsample`` may exceed N, as the reference's scan allows: the
+top-k then takes all N keys, and the slots past them take the first hit.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def query_depth_point(z_points: torch.Tensor, z_ref: torch.Tensor,
@@ -27,7 +29,7 @@ def query_depth_point(z_points: torch.Tensor, z_ref: torch.Tensor,
       z_points: (B, N) depth of the frustum points, in storage order.
       z_ref:    (B, M) depth of the section centers (queries).
       dis_z:    half-window; a point matches iff ``|z_p - z_q| < dis_z``.
-      nsample:  slots per query (K), K <= N.
+      nsample:  slots per query (K); K > N leaves slots N.. to the first hit.
 
     Returns:
       idx: (B, M, K) int32 gather indices into the N axis.
@@ -37,8 +39,11 @@ def query_depth_point(z_points: torch.Tensor, z_ref: torch.Tensor,
     mask = (z_points[:, None, :] - z_ref[:, :, None]).abs() < dis_z  # (B, M, N)
     arange = torch.arange(n, dtype=torch.int32, device=z_points.device)
     key = torch.where(mask, arange, arange + n)  # unique; hits sort first
-    neg_sorted, _ = torch.topk(-key, nsample, dim=-1, largest=True, sorted=True)
-    sel = -neg_sorted  # (B, M, K) the K smallest keys, ascending
+    neg_sorted, _ = torch.topk(-key, min(nsample, n), dim=-1, largest=True,
+                               sorted=True)
+    sel = -neg_sorted  # (B, M, min(K, N)) the smallest keys, ascending
+    if nsample > n:  # cnt <= N: the slots past N all take the first hit
+        sel = F.pad(sel, (0, nsample - n))
     cnt = torch.clamp(mask.sum(dim=-1), max=nsample).to(torch.int32)
     first_hit = torch.where(cnt[..., None] > 0, sel[..., :1],
                             torch.zeros_like(sel[..., :1]))

@@ -18,7 +18,11 @@ fields and defaults):
   ``ScaleByScheduleState.count``, and :func:`reset_schedule_count` can restart
   the schedule while Adam's moments and step counts stay;
 * BatchNorm batch statistics are the model's (``module.train()``); the batch
-  is on one device. The mesh and its batch sharding are not ported yet.
+  is on one device. The mesh and its batch sharding are not ported yet;
+* the steps compute in the model's dtypes (``FrustumConvNet.set_precision``)
+  while the batch stays float32 and the losses take the heads' outputs,
+  which are at least float32, as the JAX steps do with the model's
+  ``dtype``.
 
 A batch is a dict of tensors on the model's device: point_cloud (B, N, C),
 one_hot (B, V), refs (tuple of (B, M_i, 3)), cls_label (B, L),

@@ -1,5 +1,5 @@
 """Per-stage timing of the flagship KITTI inference path on one CUDA card:
-``python -m frustum_convnet_tpu_torch.tools.profile_stages [--batch 32] [--trace DIR]``
+``python -m frustum_convnet_tpu_torch.tools.profile_stages [--batch 32] [--dtype bfloat16] [--trace DIR]``
 
 Counterpart of ``tools/profile_stages.py:51-157``, with the same stages and
 output lines:
@@ -18,7 +18,8 @@ of 30 back-to-back calls, in place of the JAX tool's on-device ``lax.scan``
 loop. The weights are the port's seeded init (seed 3, as the JAX tool's
 ``PRNGKey(3)``), in eval mode; the batch is ``data/fixtures.make_batch``.
 ``--trace DIR`` writes a ``torch.profiler`` chrome trace of one full call.
-The port computes in float32 only, so ``--dtype`` takes nothing else.
+``--dtype`` (float32, bfloat16 or float16) is the model's compute dtype; the
+grouping stays float32.
 """
 
 from __future__ import annotations
@@ -54,9 +55,11 @@ def profile_cfg(cfg_file: str | None = None):
     return cfg
 
 
-def build_stages(spec, batch_size: int, device: torch.device):
-    """[(name, fn)]: each stage as a call with no arguments on ``device``."""
-    model = FrustumConvNet(spec)
+def build_stages(spec, batch_size: int, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
+    """[(name, fn)]: each stage as a call with no arguments on ``device``,
+    the model computing in ``dtype``."""
+    model = FrustumConvNet(spec, dtype=dtype)
     model.reset_parameters(torch.Generator().manual_seed(INIT_SEED))
     model.to(device).eval()
     batch = make_batch(spec, batch=batch_size, seed=0, with_labels=False)
@@ -137,17 +140,15 @@ def main(argv=None) -> dict:
                     help="experiment yaml whose shapes to profile "
                          "(default: flagship det_sample geometry)")
     args = ap.parse_args(argv)
-    if args.dtype != "float32":
-        raise NotImplementedError(f"--dtype {args.dtype}: the torch port "
-                                  "computes in float32 only")
     if not torch.cuda.is_available():
         raise RuntimeError("the profiler times a CUDA card and needs one")
     device = torch.device("cuda")
     strict_fp32()
     spec = configs.get_model_spec(profile_cfg(args.cfg))
-    print(f"device: {torch.cuda.get_device_name(device)}, batch {args.batch}")
+    print(f"device: {torch.cuda.get_device_name(device)}, batch {args.batch}, "
+          f"{args.dtype}")
     times = {}
-    stages = build_stages(spec, args.batch, device)
+    stages = build_stages(spec, args.batch, device, getattr(torch, args.dtype))
     for name, fn in stages:
         best = time_stage(fn)
         times[name] = best

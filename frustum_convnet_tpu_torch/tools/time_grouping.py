@@ -23,6 +23,9 @@ written into a temporary directory):
 * ``calls``: 200 back-to-back calls of the Python wrapper between two CUDA
   events, which includes whatever of the wrapper's host time the card does
   not hide;
+* ``plain``: the kernel's plain PyTorch version
+  (``ops/query_depth_point``) on the same tensors on the card, 10 calls
+  between two CUDA events;
 * ``bound``: ``kernel_bound`` of the same inputs, and ``share`` = bound /
   alone.
 
@@ -150,6 +153,7 @@ def main(argv=None) -> dict:
         raise RuntimeError("time_grouping measures on a CUDA card; none is visible")
     from frustum_convnet_tpu_torch import configs
     from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
+    from frustum_convnet_tpu_torch.ops import query_depth_point as plain
 
     cfg = configs.get_default_cfg()
     configs.merge_cfg_from_file(os.path.join(tree, "cfgs", "det_sample.yaml"), cfg)
@@ -157,16 +161,17 @@ def main(argv=None) -> dict:
     dev = torch.device("cuda", 0)
     rows = []
 
-    def measure(name, label, fn, points, refs, dzs, ks):
+    def measure(name, label, fn, plain_fn, points, refs, dzs, ks):
         alone = alone_ms(fn, KERNEL_NAMES[name])
         calls = cuda_time_ms(fn)
+        plain = cuda_time_ms(plain_fn, iters=10)
         bound = kernel_bound(name, points, refs, dzs, ks)
         row = {"kernel": name, "case": label, "alone_ms": alone, "calls_ms": calls,
-               "share": bound["bound_ms"] / alone, **bound}
+               "plain_ms": plain, "share": bound["bound_ms"] / alone, **bound}
         rows.append(row)
         print(f"[time] {name} {label}: alone {alone:.4f} ms, calls {calls:.4f} ms, "
-              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), share "
-              f"{row['share']:.1%}", flush=True)
+              f"plain {plain:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}), share {row['share']:.1%}", flush=True)
 
     inputs = {}
     for batch in (32, 64, 256):
@@ -176,6 +181,7 @@ def main(argv=None) -> dict:
         inputs[batch] = (t_pts, t_refs, dzs, ks)
         measure("group_depth_point_multi", f"B={batch}",
                 lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks),
+                lambda: plain.group_depth_point_multi(t_pts, t_refs, dzs, ks),
                 t_pts, t_refs, dzs, ks)
     with tempfile.TemporaryDirectory(prefix="time_grouping-") as work:
         families = grouping_cases.family_datasets(os.path.join(tree, "cfgs"), work)
@@ -187,6 +193,7 @@ def main(argv=None) -> dict:
                  f"K={'/'.join(map(str, f_ks))})")
         measure("group_depth_point_multi", label,
                 lambda: select_cuda.group_depth_point_multi_cuda(f_pts, f_refs, f_dzs, f_ks),
+                lambda: plain.group_depth_point_multi(f_pts, f_refs, f_dzs, f_ks),
                 f_pts, f_refs, f_dzs, f_ks)
     # kernels 2 and 3 at B=256 on scales 1 and 4; kernel 3 also at the
     # profiler's B=32 on scale 1
@@ -199,11 +206,13 @@ def main(argv=None) -> dict:
         z_ref = ref[..., 2].contiguous()
         label = f"B={batch} scale {i + 1} (M={ref.shape[1]}, K={k})"
         calls = {"group_depth_point":
-                 lambda: select_cuda.group_depth_point_cuda(t_pts, ref, d, k),
+                 (lambda: select_cuda.group_depth_point_cuda(t_pts, ref, d, k),
+                  lambda: plain.group_depth_point(t_pts, ref, d, k)),
                  "query_depth_point":
-                 lambda: select_cuda.query_depth_point_cuda(z_points, z_ref, d, k)}
+                 (lambda: select_cuda.query_depth_point_cuda(z_points, z_ref, d, k),
+                  lambda: plain.query_depth_point(z_points, z_ref, d, k))}
         for name in kernels:
-            measure(name, label, calls[name], t_pts, [ref], [d], [k])
+            measure(name, label, *calls[name], t_pts, [ref], [d], [k])
     with open(os.path.join(tree, select_cuda.KERNEL_SOURCE), "rb") as f:
         source = hashlib.sha256(f.read()).hexdigest()[:12]
     result = {"tree": args.tree, "kernel_source_sha256": source, "card": card(),

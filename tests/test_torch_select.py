@@ -70,6 +70,33 @@ def test_grouping_matches_jax_kernel_and_oracle(name):
     _check_against_jax(CASES[name])
 
 
+@pytest.mark.parametrize("name", ["k_above_n_n100", "k_above_n_n201_c6"])
+def test_nsample_above_point_count_matches_oracle(name):
+    """K > N, which the reference's scan takes: idx, cnt and grouped of the
+    plain version equal the numpy oracle's, bit for bit; every slot past
+    the hits (N.. included) holds the first hit, 0 in an empty section."""
+    pts, refs, dzs, ks = CASES[name]
+    n = pts.shape[1]
+    assert max(ks) > n
+    cnts = []
+    for ref, d, k in zip(refs, dzs, ks):
+        idx_o, cnt_o = query_depth_point_np(pts[..., 2], ref[..., 2], d, k)
+        idx, cnt = qdp.query_depth_point(torch.from_numpy(pts[..., 2].copy()),
+                                         torch.from_numpy(ref[..., 2].copy()), d, k)
+        np.testing.assert_array_equal(idx.numpy(), idx_o)
+        np.testing.assert_array_equal(cnt.numpy(), cnt_o)
+        g, c = qdp.group_depth_point(torch.from_numpy(pts), torch.from_numpy(ref), d, k)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(group_points(pts, ref, idx_o)))
+        np.testing.assert_array_equal(c.numpy(), cnt_o)
+        if k > n:
+            assert (idx[..., n:] == idx[..., :1]).all()
+        cnts.append(cnt_o.ravel())
+    cnts = np.concatenate(cnts)
+    assert (cnts > 0).any()
+    if name == "k_above_n_n100":  # an empty section, and one where every point hits
+        assert (cnts == 0).any() and (cnts == n).any()
+
+
 def _family_spec(family):
     from frustum_convnet_tpu_torch import configs
 
@@ -532,7 +559,9 @@ print("standalone ok")
 def test_profiler_stages_run_on_cpu_and_timing_needs_a_card():
     """Every stage of ``tools/profile_stages`` runs (on the plain versions
     here) at a tiny shape, and the same grouping reaches the select and
-    self-grouping stages; timing refuses to run without a card."""
+    self-grouping stages; so do the bfloat16 stages (``--dtype bfloat16``),
+    whose grouping stays float32 and whose heads give float32; timing
+    refuses to run without a card, whatever the dtype."""
     import __graft_entry__ as graft
     from frustum_convnet_tpu_torch.tools import profile_stages
 
@@ -548,8 +577,17 @@ def test_profiler_stages_run_on_cpu_and_timing_needs_a_card():
         pooled = outs[f"pointnet scale{i + 1} self-grouping (M={m},K={k})"]
         torch.testing.assert_close(
             pooled, outs["pointnet MLP stage (grouping precomputed)"][i], rtol=0, atol=0)
+    bf16 = dict(profile_stages.build_stages(spec, 2, torch.device("cpu"),
+                                            torch.bfloat16))
+    with torch.inference_mode():
+        cls, reg = bf16["forward only"]()
+        pooled = bf16["pointnet MLP stage (grouping precomputed)"]()
+        grouped = bf16["multi-scale fused grouping (1 launch)"]()
+    assert cls.dtype == reg.dtype == torch.float32 and torch.isfinite(reg).all()
+    assert all(p.dtype == torch.bfloat16 for p in pooled)
+    assert all(g.dtype == torch.float32 and torch.equal(g, gm) and torch.equal(c, cm)
+               for (g, c), (gm, cm) in zip(grouped, multi))
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA card"):
-            profile_stages.main(["--batch", "2"])
-    with pytest.raises(NotImplementedError, match="float32"):
-        profile_stages.main(["--dtype", "bfloat16"])
+        for dtype in ("float32", "bfloat16", "float16"):
+            with pytest.raises(RuntimeError, match="CUDA card"):
+                profile_stages.main(["--batch", "2", "--dtype", dtype])

@@ -5,7 +5,7 @@ Bit for bit (grouped, idx and cnt) on every edge case of
 families' (refine car and people with edge-padded ladders, people, SUN-RGBD;
 synthetic cases and B=32 provider batches), for the three modes: every
 scale in one launch (kernel 1), one scale (kernel 2) and the select alone
-(kernel 3). This file
+(kernel 3), nsample above the point count included. This file
 imports no jax, so on a machine with the card it runs alone:
 
     python -m pytest --noconftest -q tests/test_torch_select_cuda.py
@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from frustum_convnet_tpu_torch.configs import (get_default_cfg, get_model_spec,
-                                               merge_cfg_from_file)
+                                               merge_cfg_from_file, merge_cfg_from_list)
 from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
 from frustum_convnet_tpu_torch.ops.query_depth_point import (group_depth_point,
                                                               group_depth_point_multi,
@@ -95,6 +95,24 @@ def test_single_scale_and_select_kernels_flagship_shapes(cuda):
     before = [c.launches for c in counters]
     _check_single(grouping_cases.flagship_case(spec, batch=32), cuda)
     assert [c.launches for c in counters] == [b + 4 for b in before]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k_above_n_n100", "k_above_n_n201_c6", "sunrgbd_n128"])
+def test_kernels_take_nsample_above_point_count(cuda, name):
+    """K > N: kernels 1, 2 and 3 against their plain versions, bit for bit,
+    on the edge cases and on SUN-RGBD at DATA.NUM_SAMPLES 128 (K=256 on
+    scales 3-5) at B=32."""
+    if name == "sunrgbd_n128":
+        cfg = get_default_cfg()
+        merge_cfg_from_file("cfgs/det_sample_sunrgbd.yaml", cfg)
+        merge_cfg_from_list(["DATA.NUM_SAMPLES", "128"], cfg)
+        case = grouping_cases.flagship_case(get_model_spec(cfg), batch=32)
+    else:
+        case = CASES[name]
+    assert max(case[3]) > case[0].shape[1]
+    _check(case, cuda)
+    _check_single(case, cuda)
 
 
 SELECT_CASES = grouping_cases.select_cases()
@@ -248,10 +266,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         select_cuda.group_depth_point_multi_cuda(
             torch.from_numpy(pts).to(cuda).double(), t_refs, dzs, ks)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="at least 1"):
         select_cuda.group_depth_point_multi_cuda(
             torch.from_numpy(np.ascontiguousarray(pts[:, ::2])).to(cuda),
-            t_refs, dzs, [1024, 8])
+            t_refs, dzs, [0, 8])
     t_pts = torch.from_numpy(pts).to(cuda)
     with pytest.raises(ValueError, match="grad"):
         select_cuda.group_depth_point_cuda(t_pts.clone().requires_grad_(),

@@ -11,8 +11,12 @@ them feed both packages, at the 5-scale model's widths with a short ladder
 * ``run_test_sunrgbd`` of both packages on the same weights, for 'top' and
   'nms': the same frustums, the same number of detections each, boxes and
   scores within 1e-4, equal ``to_corner_results`` keys and equal VOC APs;
+* the forward at DATA.NUM_SAMPLES 128, under the 256 slots of scales 3-5
+  (nsample above the point count), against Flax grouping with its Pallas
+  kernel in interpret mode (its CPU ``lax.top_k`` grouping needs K <= N);
 * one CPU epoch of ``engine.train.main`` on ``cfgs/det_sample_sunrgbd.yaml``,
-  then ``engine.test_sunrgbd.main --device cpu`` writing ``sunrgbd_ap.json``;
+  then ``engine.test_sunrgbd.main --device cpu`` writing ``sunrgbd_ap.json``,
+  in float32 and at TPU.INFER_DTYPE bfloat16;
 * ``cfgs/det_sample_people.yaml`` (Pedestrian and Cyclist) through the port's
   stage-1 provider and forward at a short depth, against the JAX provider
   and Flax.
@@ -111,6 +115,32 @@ def test_sunrgbd_forward_matches_flax(sun, dtype, tol):
         np.testing.assert_allclose(g, w, err_msg=name, **tol)
 
 
+def test_sunrgbd_forward_with_nsample_above_the_point_count(sun, monkeypatch):
+    from frustum_convnet_tpu.models import net as jax_net
+    from frustum_convnet_tpu.ops.query_depth_point import query_depth_point_np
+    from frustum_convnet_tpu.ops.select_pallas import group_depth_point_multi
+
+    monkeypatch.setattr(jax_net, "group_depth_point_multi_auto",
+                        lambda *args: group_depth_point_multi(*args, interpret=True))
+    cfg = get_default_cfg()
+    merge_cfg_from_file(CFG, cfg)
+    merge_cfg_from_list(sun["overrides"] + ["DATA.NUM_SAMPLES", "128"], cfg)
+    spec = get_model_spec(cfg)
+    assert spec.num_points == 128 and spec.nsamples == (128, 128, 256, 256, 256)
+    batch = _batch(JaxSunProvider(cfg, "train", random_flip=True, random_shift=True),
+                   spec, 3)
+    assert batch["point_cloud"].shape[1] == 128
+    for ref, d, k in zip(batch["refs"], spec.height_half, spec.nsamples):
+        _, cnt = query_depth_point_np(batch["point_cloud"][..., 2], ref[..., 2], d, k)
+        assert cnt.max() <= 128 < k or k == 128
+    params, stats = _variables(spec, batch)
+    want = _jax_forward(spec, params, stats, batch, jnp.float32)
+    got = _torch_forward(spec, params, stats, batch, torch.float32)
+    for g, w, name in zip(got, want, ("cls_logits", "reg")):
+        assert g.shape == w.shape and np.isfinite(g).all(), name
+        np.testing.assert_allclose(g, w, err_msg=name, **F32_TOL)
+
+
 def _decisive_state(sun):
     """The JAX driver's seeded init, with the cls head scaled 30 times so
     that no section's fg probability sits within float32 noise of the 0.5
@@ -182,6 +212,13 @@ def test_sunrgbd_trains_then_serves_on_cpu(sun):
     with open(os.path.join(served["result_dir"], "sunrgbd_ap.json")) as f:
         written = json.load(f)
     assert written["ap"] == served["ap"] and all(np.isfinite(list(served["ap"].values())))
+    half = tsun.main(["--cfg", CFG, "--device", "cpu", "--sunrgbd_dir", sun["raw"],
+                      "--val_idx", sun["val_idx"]] + sun["overrides"] + [
+        "OUTPUT_DIR", str(sun["root"] / "out_bf16"), "TEST.WEIGHTS", final,
+        "TPU.INFER_DTYPE", "bfloat16"])
+    assert half["stats"]["sections"] == half["stats"]["frustums"] == stats["frustums"]
+    assert sorted(half["ap"]) == sorted(served["ap"])
+    assert all(np.isfinite(list(half["ap"].values())))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tsun.main(["--cfg", CFG] + sun["overrides"])

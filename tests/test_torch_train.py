@@ -11,7 +11,11 @@ A tiny labeled synthetic split, written by ``chip_smoke.make_train_split``
   the fine-tune quirk (epoch 0, schedule count 0, Adam state kept);
 * EVAL_MODE runs one validation pass and writes no checkpoint;
 * a non-finite loss aborts the run;
-* a checkpoint the trainer wrote serves through ``engine.test.main``.
+* every precision and BatchNorm variant of ``cfg.TPU`` trains a tiny epoch
+  with finite losses, and ``TPU.F32_FINETUNE_EPOCHS`` switches a float16
+  run to float32 for its last epochs with the schedule carried on;
+* a checkpoint the trainer wrote serves through ``engine.test.main``, also
+  at half-precision ``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``.
 """
 
 import json
@@ -129,15 +133,67 @@ def test_non_finite_loss_aborts(run):
                                     "OUTPUT_DIR", str(run["work"] / "inf")])
 
 
+VARIANTS = [["TPU.BN_GROUP_SIZE", "4"], ["TPU.FAST_BN", "True"],
+            ["TPU.FAST_BN_FIRST", "True"], ["TPU.REMAT_POINTNET", "True"],
+            ["TPU.COMPUTE_DTYPE", "bfloat16"], ["TPU.COMPUTE_DTYPE", "float16"],
+            ["TPU.COMPUTE_DTYPE", "bfloat16", "TPU.TRUNK_DTYPE", "float32"],
+            ["TPU.F32_FINETUNE_EPOCHS", "1"]]
+
+
 def test_unported_variants_raise(run):
-    for key, val in (("TPU.BN_GROUP_SIZE", "4"), ("TPU.FAST_BN", "True"),
-                     ("TPU.FAST_BN_FIRST", "True"), ("TPU.REMAT_POINTNET", "True"),
-                     ("TPU.COMPUTE_DTYPE", "bfloat16")):
-        with pytest.raises(NotImplementedError, match=key):
-            trainer.main(run["base"] + [key, val])
+    """The variants the JAX package takes train here too: a tiny epoch of
+    each, with finite losses, in its compute dtype, parameters float32 (a
+    float32 run ignores F32_FINETUNE_EPOCHS); the trainer still refuses a
+    card it cannot see."""
+    for i, opts in enumerate(VARIANTS):
+        out = str(run["work"] / f"variant{i}")
+        res = trainer.main(run["base"] + opts + ["TRAIN.MAX_EPOCH", "1", "OUTPUT_DIR", out])
+        compute = opts[opts.index("TPU.COMPUTE_DTYPE") + 1] if "TPU.COMPUTE_DTYPE" in opts \
+            else "float32"
+        assert [(e["epoch"], e["steps"], e["dtype"]) for e in res["epochs"]] == [
+            (0, 3, compute)], opts
+        with open(os.path.join(out, "train.log")) as f:
+            log = f.read()
+        assert "epoch 0 done" in log and "nan" not in log.lower(), opts
+        assert "switching to float32" not in log
+        model = res["state"].model
+        assert all(t.dtype == torch.float32 for t in model.state_dict().values()
+                   if t.is_floating_point())
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trainer.main(["--cfg", CFG, "--device", "cuda"])
+
+
+def test_f32_finetune_epochs_switch_a_float16_run(run, monkeypatch):
+    """float16 with F32_FINETUNE_EPOCHS 1 over 2 epochs: the switch is
+    logged at epoch 1, epoch 0's train steps compute in float16 and epoch
+    1's in float32 (the PointNet layers' outputs), and the schedule count
+    runs on across the switch (6 steps)."""
+    seen = []
+    forward = trainer.FrustumConvNet.forward
+
+    def spy(self, *args):
+        if self.training:  # the first PointNet layer's output, no statistics updated
+            with torch.no_grad():
+                probe = self.feat_net.pointnet1.conv1(torch.zeros(2, 3), False)
+            seen.append(probe.dtype)
+        return forward(self, *args)
+
+    monkeypatch.setattr(trainer.FrustumConvNet, "forward", spy)
+    out = str(run["work"] / "finetune")
+    res = trainer.main(run["base"] + ["TRAIN.MAX_EPOCH", "2", "OUTPUT_DIR", out,
+                                      "TPU.COMPUTE_DTYPE", "float16",
+                                      "TPU.F32_FINETUNE_EPOCHS", "1"])
+    assert [(e["epoch"], e["dtype"]) for e in res["epochs"]] == [
+        (0, "float16"), (1, "float32")]
+    assert seen == [torch.float16] * 3 + [torch.float32] * 3
+    with open(os.path.join(out, "train.log")) as f:
+        log = f.read()
+    assert ("epoch 1: switching to float32 fine-tune steps "
+            "(TPU.F32_FINETUNE_EPOCHS=1)") in log
+    state = res["state"]
+    assert state.step == 6 and state.optimizer.param_groups[0]["schedule_count"] == 6
+    assert all(int(s["step"]) == 6 for s in state.optimizer.state.values())
 
 
 def test_trained_checkpoint_serves_through_the_test_driver(run):
@@ -152,4 +208,28 @@ def test_trained_checkpoint_serves_through_the_test_driver(run):
     assert res["stats"]["frustums"] == 6
     assert sorted(os.listdir(res["result_dir"])) == ["000000.txt", "000001.txt",
                                                      "000002.txt"]
+    assert res["ap"] is not None and "car" in res["ap"]
+
+
+@pytest.mark.parametrize("opts", [["TPU.INFER_DTYPE", "bfloat16"],
+                                  ["TPU.INFER_DTYPE", "float16", "TPU.TRUNK_DTYPE", "float32"]],
+                         ids=["bf16", "f16_trunk_f32"])
+def test_trained_checkpoint_serves_at_half_precision(run, opts):
+    """The float32 checkpoint serves at the half-precision inference dtypes:
+    every frame's result file, finite values, and the AP."""
+    work = run["work"]
+    split = chip_smoke.make_val_split(str(work / f"serve_{opts[1]}"), _spec(),
+                                      num_frames=3, cars_per_frame=2)
+    res = serve.main(["--cfg", CFG, "--device", "cpu", "--gt_dir", split["gt_dir"],
+                      "--idx_path", split["idx_path"]] + TINY + [
+        "DATA.DATA_ROOT", split["pickle_dir"], "OUTPUT_DIR", str(work / f"out_{opts[1]}"),
+        "TPU.INFER_GROUP", "1",
+        "TEST.WEIGHTS", checkpoints.checkpoint_paths(run["out"])["final"]] + opts)
+    assert res["stats"]["frustums"] == 6 and res["stats"]["detections"] > 0
+    files = sorted(os.listdir(res["result_dir"]))
+    assert files == ["000000.txt", "000001.txt", "000002.txt"]
+    for name in files:
+        with open(os.path.join(res["result_dir"], name)) as f:
+            values = [float(v) for line in f for v in line.split()[3:]]
+        assert np.isfinite(values).all()
     assert res["ap"] is not None and "car" in res["ap"]

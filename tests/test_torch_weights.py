@@ -124,19 +124,35 @@ def test_reset_parameters_is_seeded_and_scaled():
 
 
 def test_config_dtypes_resolve_float32_only():
+    """The dtype keys resolve as the JAX package's ``models.registry`` does
+    (float32 by default; bfloat16 and float16 too), and a name outside them
+    raises."""
+    from frustum_convnet_tpu.models import registry as jax_registry
+
     cfg = get_default_cfg()
-    assert configs.get_infer_dtype(cfg) == torch.float32
+    assert configs.get_compute_dtype(cfg, train=True) == torch.float32
+    assert configs.get_compute_dtype(cfg, train=False) == torch.float32
     assert configs.get_trunk_dtype(cfg) is None
     assert configs.get_points_upload_dtype(cfg) == torch.float16
     cfg.TPU.INFER_POINTS_DTYPE = "float32"
     assert configs.get_points_upload_dtype(cfg) == torch.float32
-    for name in ("bfloat16", "float16"):
-        cfg.TPU.INFER_DTYPE = name
-        with pytest.raises(NotImplementedError):
-            configs.get_infer_dtype(cfg)
+    for name in ("float32", "bfloat16", "float16"):
+        cfg.TPU.COMPUTE_DTYPE, cfg.TPU.INFER_DTYPE = name, "float32"
         cfg.TPU.TRUNK_DTYPE = name
-        with pytest.raises(NotImplementedError):
-            configs.get_trunk_dtype(cfg)
+        for train in (True, False):
+            got = configs.get_compute_dtype(cfg, train=train)
+            want = jax_registry.get_compute_dtype(cfg, train=train)
+            assert str(got).split(".")[-1] == jnp.dtype(want).name
+        assert configs.get_trunk_dtype(cfg) == getattr(torch, name)
+        assert jnp.dtype(jax_registry.get_trunk_dtype(cfg)).name == name
+    cfg.TPU.INFER_DTYPE = "bfloat16"
+    assert configs.get_compute_dtype(cfg, train=False) == torch.bfloat16
+    for key in ("COMPUTE_DTYPE", "INFER_DTYPE", "TRUNK_DTYPE"):
+        bad = get_default_cfg()
+        bad.TPU[key] = "float64"
+        with pytest.raises(KeyError, match=key):
+            configs.get_compute_dtype(bad, train=key == "COMPUTE_DTYPE")
+            configs.get_trunk_dtype(bad)
     cfg.TPU.INFER_POINTS_DTYPE = "bfloat16"
     with pytest.raises(ValueError):
         configs.get_points_upload_dtype(cfg)
