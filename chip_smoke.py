@@ -88,7 +88,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     the switch logged at epoch 2), printing each epoch's ms/step;
     ``engine.test.main`` at TPU.INFER_DTYPE bfloat16 on phase 5's split,
     its AP beside phase 5's; ``tools.profile_stages --dtype`` bfloat16 and
-    float16, the forward ms beside phase 7's float32.
+    float16, the forward ms beside phase 7's float32;
+14. people cascade (``scripts/people_all.sh``): a synthetic KITTI of
+    Pedestrians and Cyclists (384 frames of 4 objects), the port's
+    ``data.kitti.prepare --people_only``, ``cfgs/det_sample_people.yaml``
+    at full width (N=1024, 700/350/175/88 = 1313 sections) trained 2 epochs
+    at batch 32 and served, ``data.kitti.prepare_refine --people_only`` on
+    its result files, then ``cfgs/refine_people.yaml`` (N=512) trained 2
+    epochs and served; checks finite losses, a result file for every val
+    id, finite Pedestrian and Cyclist APs and a kernel-1 launch on every
+    forward; prints each stage's train ms/step and frustums/s and serving
+    frustums/s;
+15. runners: ``tools.run_synth_protocol.main`` (``--frames 128 --epochs
+    1``) and ``tools.run_refine_protocol.main`` on its output, each
+    ``PROTOCOL_RESULT`` checked and printed, with a kernel-1 launch on
+    every train, eval and serving forward.
 
 The splits of phases 4-9 are written here from seeded numpy, with one car
 generator: the val split in the reference's 7-stream rgb-detection pickle
@@ -106,8 +120,9 @@ run (phase 9), kernels 2 and 3 over the profiler's (phase 7).
 counted the same way: serving and training (phases 5 and 9), the refine
 cascade's stage-1 serving, training and serving (phase 10), and SUN-RGBD
 training and serving (phase 11), bfloat16 training, float16 training with
-the float32 fine-tune and bfloat16 serving (phase 13); only kernel 1 runs
-there.
+the float32 fine-tune and bfloat16 serving (phase 13), the people cascade's
+stage-1 and refine training and serving (phase 14) and each protocol
+runner (phase 15); only kernel 1 runs there.
 ``main_path_launches`` is their sum. Kernel 1's ``family_shapes`` holds its
 phase-12 numbers. Launches that compare a kernel with its plain version are
 not counted. ``bound_ms`` is
@@ -871,10 +886,12 @@ def _train_family(tag: str, cfg_file: str, args: list, val_ds) -> dict:
     return {"launches": launches, "steady": steady, "final": final}
 
 
-def _serve_kitti(tag: str, cfg_file: str, raw: str, args: list, group: int = 2) -> dict:
+def _serve_kitti(tag: str, cfg_file: str, raw: str, args: list, group: int = 2,
+                 classes=("car",)) -> dict:
     """``engine.test.main`` on the card over a synthetic KITTI val split:
     checks a result file for every val id, finite values, detections, the
-    evaluator's car AP and one kernel-1 launch for every forward."""
+    evaluator's AP of each of ``classes`` and one kernel-1 launch for every
+    forward."""
     from frustum_convnet_tpu_torch.engine import test as driver
 
     idx_path = os.path.join(raw, "image_sets", "val.txt")
@@ -898,15 +915,16 @@ def _serve_kitti(tag: str, cfg_file: str, raw: str, args: list, group: int = 2) 
         raise AssertionError(f"[{tag}] {len(files)} result files for {n_ids} ids, "
                              f"{len(values)} finite detections expected")
     ap = out["ap"]
-    if not ap or "car" not in ap or not np.isfinite(np.asarray(ap["car"]["detection_3d"])).all():
+    if not ap or any(c not in ap or not np.isfinite(np.asarray(ap[c]["detection_3d"])).all()
+                     for c in classes):
         raise AssertionError(f"[{tag}] the evaluator returned {ap!r}")
     if launches != forwards:
         raise AssertionError(f"[{tag}] {launches} kernel launches for {forwards} forwards")
     print(f"[{tag}] serving: {stats['frustums']} frustums in {n_batches} batches of 32, "
           f"groups of {group}: {launches} kernel launches (one a forward), "
           f"{stats['sections']} foreground sections, {stats['detections']} detections, "
-          f"{len(values)} after NMS in {len(files)} files; car AP 3D "
-          f"{ap['car']['detection_3d']}")
+          f"{len(values)} after NMS in {len(files)} files; "
+          + "; ".join(f"{c} AP 3D {ap[c]['detection_3d']}" for c in classes))
     print(f"[{tag}] serving: end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
           f"{stats['seconds']:.2f}s; steady-state {stats['steady_frustums_per_s']} frustums/s")
     return {"launches": launches, "stats": stats, "result_dir": out["result_dir"]}
@@ -953,6 +971,118 @@ def phase_refine(work: str, stage1_weights: str, num_frames: int = 64) -> dict:
                          args + ["TEST.WEIGHTS", train["final"]])
     return {"refine_stage1_serving": stage1["launches"],
             "refine_training": train["launches"], "refine_serving": serve["launches"]}
+
+
+def phase_people(work: str, num_frames: int = 64) -> dict:
+    """The people cascade (``scripts/people_all.sh``) through the port's CLIs
+    on the card: a synthetic KITTI of Pedestrians and Cyclists, the stage-1
+    prep (``--people_only``), ``cfgs/det_sample_people.yaml`` at full width
+    (N=1024, 700/350/175/88 = 1313 sections) trained 2 epochs at batch 32 and
+    served, the refine prep on its results, then ``cfgs/refine_people.yaml``
+    (N=512) trained 2 epochs and served. Returns kernel-1 launches a path."""
+    from frustum_convnet_tpu_torch import configs
+    from frustum_convnet_tpu_torch.data.kitti import prepare, prepare_refine
+    from frustum_convnet_tpu_torch.data.kitti.synthetic import make_synthetic_kitti
+    from frustum_convnet_tpu_torch.data.provider import FrustumProvider
+    from frustum_convnet_tpu_torch.data.provider_refine import FrustumRefineProvider
+
+    t0 = time.time()
+    raw = os.path.join(work, "people_raw")
+    make_synthetic_kitti(raw, num_frames=num_frames, cars_per_frame=4, seed=SMOKE_SEED,
+                         classes=("Pedestrian", "Cyclist"))
+    stage1_pickles = os.path.join(work, "people_pickles")
+    prepare.main(["--people_only", "--gen_train", "--gen_val", "--gen_val_rgb_detection",
+                  "--data_root", raw, "--rgb_det_dir", os.path.join(raw, "rgb_detections"),
+                  "--save_dir", stage1_pickles])
+    print(f"[people] synthetic people KITTI of {num_frames} frames and the stage-1 prep "
+          f"in {time.time() - t0:.1f}s")
+    classes = ("pedestrian", "cyclist")
+    cfg = flagship_cfg(stage1_pickles, "det_sample_people.yaml")
+    refs = configs.get_model_spec(cfg).num_refs
+    if refs != (700, 350, 175, 88):
+        raise AssertionError(f"[people] the ladder has {refs} sections")
+    args = ["DATA.DATA_ROOT", stage1_pickles, "OUTPUT_DIR", os.path.join(work, "people_train")]
+    train = _train_family("people", "det_sample_people.yaml", args, FrustumProvider(cfg, "val"))
+    stage1 = _serve_kitti("people", "det_sample_people.yaml", raw,
+                          args + ["TEST.WEIGHTS", train["final"]], classes=classes)
+
+    refine_pickles = os.path.join(work, "people_refine_pickles")
+    # --gen_val as well: the refine trainer's validation epoch reads it
+    prepare_refine.main(["--people_only", "--gen_train", "--gen_val", "--gen_val_rgb_detection",
+                         "--data_root", raw, "--save_dir", refine_pickles,
+                         "--val_res_dir", stage1["result_dir"]])
+    args = ["DATA.DATA_ROOT", refine_pickles,
+            "OUTPUT_DIR", os.path.join(work, "people_train_refine")]
+    rcfg = flagship_cfg(refine_pickles, "refine_people.yaml")
+    refine = _train_family("refine people", "refine_people.yaml", args,
+                           FrustumRefineProvider(rcfg, "val"))
+    served = _serve_kitti("refine people", "refine_people.yaml", raw,
+                          args + ["TEST.WEIGHTS", refine["final"]], classes=classes)
+    return {"people_training": train["launches"], "people_serving": stage1["launches"],
+            "refine_people_training": refine["launches"],
+            "refine_people_serving": served["launches"]}
+
+
+# the summary keys of tools/run_synth_protocol.py:120-131 and
+# tools/run_refine_protocol.py:118-131
+PROTOCOL_KEYS = {
+    "stage1": {"dtype", "epochs", "frames", "difficulty_mix", "overrides", "train_seconds",
+               "ap", "ap_bev"},
+    "refine": {"stage", "dtype", "epochs", "frames", "stage1", "weights", "overrides",
+               "train_seconds", "ap", "ap_bev"}}
+
+
+def phase_runners(work: str, frames: int = 128) -> dict:
+    """The protocol runners at a short size on the card:
+    ``run_synth_protocol.main`` (``--frames 128 --epochs 1``; IOU_THRESH 0.1,
+    so that one epoch scores a best and ``model_best.pth`` is written), then
+    ``run_refine_protocol.main`` on its output. Checks each
+    ``PROTOCOL_RESULT`` (the JAX tools' keys, finite Car APs, the same
+    ``protocol_result.json``) and a kernel-1 launch on every train, eval and
+    serving forward. Returns kernel-1 launches a runner."""
+    import math
+
+    from frustum_convnet_tpu_torch.data.provider import FrustumProvider
+    from frustum_convnet_tpu_torch.data.provider_refine import FrustumRefineProvider
+    from frustum_convnet_tpu_torch.tools import run_refine_protocol, run_synth_protocol
+
+    cache = os.path.join(work, "protocol")
+    common = ["--frames", str(frames), "--epochs", "1", "--cache", cache, "--device", "cuda"]
+    stage1_dir = os.path.join(cache, "run_float32_1ep")
+    out = {}
+    for stage, runner, args, cfg_file, provider in (
+            ("stage1", run_synth_protocol, ["--override", "IOU_THRESH", "0.1"],
+             "det_sample.yaml", FrustumProvider),
+            ("refine", run_refine_protocol, ["--stage1", stage1_dir], "refine_car.yaml",
+             FrustumRefineProvider)):
+        _reset_counts()
+        t0 = time.time()
+        summary = runner.main(common + args)
+        seconds = time.time() - t0
+        launches = _counts()["group_depth_point_multi"]
+        pickles = (run_synth_protocol.build_dataset(frames, 2, cache, 1)[1]  # cached
+                   if stage == "stage1" else
+                   os.path.join(cache, "refine_pickles_run_float32_1ep"))
+        cfg = flagship_cfg(pickles, cfg_file)
+        forwards = (len(provider(cfg, "train")) // 32 + math.ceil(len(provider(cfg, "val")) / 32)
+                    + math.ceil(len(provider(cfg, "val", from_rgb_detection=True)) / 32 / 8))
+        run_dir = stage1_dir if stage == "stage1" else os.path.join(
+            cache, "run_refine_float32_1ep")
+        with open(os.path.join(run_dir, "protocol_result.json")) as f:
+            written = json.load(f)
+        aps = summary.get("ap", {}).get("car", []) + summary.get("ap_bev", {}).get("car", [])
+        if (set(summary) != PROTOCOL_KEYS[stage] or written != summary or len(aps) != 6
+                or not np.isfinite(aps).all()):
+            raise AssertionError(f"[runners] {stage}: PROTOCOL_RESULT {summary}, "
+                                 f"protocol_result.json {written}")
+        if launches < forwards:
+            raise AssertionError(f"[runners] {stage}: {launches} kernel launches for at "
+                                 f"least {forwards} train, eval and serving forwards")
+        print(f"[runners] {stage}: PROTOCOL_RESULT {json.dumps(summary)}")
+        print(f"[runners] {stage}: {launches} kernel launches (at least {forwards} "
+              f"forwards), {seconds:.1f}s with the prep")
+        out[f"runner_{stage}"] = launches
+    return out
 
 
 def phase_sunrgbd(work: str, num_frames: int = 64) -> dict:
@@ -1369,6 +1499,10 @@ def main() -> int:
         phase_precision_device(spec, device, seeded_model(spec), train_ds)
         precision = phase_precision_trainer(work, train_dir, served["ap"], model, split)
         phase_precision_profiler(prof_times)
+        # 14. the people cascade, through the CLIs
+        people = phase_people(work, num_frames=384)
+        # 15. the protocol runners at a short size
+        runners = phase_runners(work)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
@@ -1378,7 +1512,8 @@ def main() -> int:
     # only kernel 1 runs on the drivers' paths
     paths = {"serving": serve_counts, "training": train["counts"]}
     paths.update({k: {"group_depth_point_multi": v}
-                  for k, v in {**refine, **sunrgbd, **precision}.items()})
+                  for k, v in {**refine, **sunrgbd, **precision, **people,
+                               **runners}.items()})
     records = []
     for name, launches, numbers in (
             ("group_depth_point_multi", train["counts"]["group_depth_point_multi"],

@@ -482,8 +482,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_port_imports_nothing_of_the_jax_package(tmp_path):
     """In a fresh interpreter, after every module of the port is imported and
-    the training and serving entry points, the KITTI and SUN-RGBD prep CLIs
-    and the SUN-RGBD driver have run on the CPU at a tiny size, no module of
+    the training and serving entry points, the KITTI and SUN-RGBD prep CLIs,
+    the SUN-RGBD driver and the protocol runners' dataset step have run on
+    the CPU at a tiny size, no module of
     the JAX package (``frustum_convnet_tpu``), nor jax, flax or optax, is
     loaded."""
     code = f"""
@@ -545,6 +546,11 @@ sun = test_sunrgbd.main(["--cfg", {os.path.join(ROOT, "cfgs", "det_sample_sunrgb
                          "OVER_WRITE_TEST_FILE", work + "/p3/sunrgbd_rgb_det_val.pickle",
                          "OUTPUT_DIR", work + "/sun_out"])
 assert sun["stats"]["frustums"] >= 1 and sun["ap"] is not None, sun
+
+# the protocol runners (both run end to end in tests/test_torch_protocol.py)
+from frustum_convnet_tpu_torch.tools import run_refine_protocol, run_synth_protocol
+kitti_root, _ = run_synth_protocol.build_dataset(2, 1, work + "/proto", 1)
+assert run_refine_protocol.build_dataset is run_synth_protocol.build_dataset
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
 assert not bad, bad

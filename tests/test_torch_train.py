@@ -140,7 +140,7 @@ VARIANTS = [["TPU.BN_GROUP_SIZE", "4"], ["TPU.FAST_BN", "True"],
             ["TPU.F32_FINETUNE_EPOCHS", "1"]]
 
 
-def test_unported_variants_raise(run):
+def test_every_variant_trains_an_epoch(run):
     """The variants the JAX package takes train here too: a tiny epoch of
     each, with finite losses, in its compute dtype, parameters float32 (a
     float32 run ignores F32_FINETUNE_EPOCHS); the trainer still refuses a
