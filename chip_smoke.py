@@ -102,7 +102,33 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 15. runners: ``tools.run_synth_protocol.main`` (``--frames 128 --epochs
     1``) and ``tools.run_refine_protocol.main`` on its output, each
     ``PROTOCOL_RESULT`` checked and printed, with a kernel-1 launch on
-    every train, eval and serving forward.
+    every train, eval and serving forward;
+16. data parallel (``parallel/mesh.py``): first one float32 train step at
+    batch 32 and full width before the optimizer (``dp_step``, alone with
+    ``--dp-gradients``), without a group twice, in a world-1 NCCL group and
+    on two ranks sharing the card over gloo: the ranks' summed gradients
+    bitwise equal, and losses within 1e-4 and every gradient leaf and
+    running statistic within ``DP_GRAD_BOUND`` (relative L2) of one
+    process; (a) world 1 over NCCL through the
+    CLIs (``FRUSTUM_COORDINATOR`` etc. set for one process):
+    ``engine.train.main`` as phase 9 runs it (its split, batch 32, 2 epochs),
+    with finite losses, NCCL all-reduces on every step and kernel 1 on
+    every forward, its ms/step printed beside phase 9's and its parameters' distance from phase 9's beside
+    phase 9's distance from a second run of itself; ``engine.test.main`` on phase 5's split with
+    those weights, and with phase 5's weights, whose result files must match
+    phase 5's (``same_results``, the comparator of
+    ``tests/test_torch_infer.py``) with equal AP; (b) two ranks sharing the
+    card over gloo (``chip_smoke.py --rank``, ``rank_main``), trained 2 and
+    8 steps at global batch 32 (16 a rank) on ``FixedDraws`` splits: the
+    ranks' states bitwise equal, step-1 losses within 1e-4 of one process on
+    the same global batches and the parameters within ``DP_BOUND`` a step
+    (JAX's ``test_multihost.py`` bound over its 2 steps), only rank 0 wrote;
+    phase 5's split served on both ranks in groups of one batch with the
+    files and AP of one process serving it so (``TPU.INFER_GROUP 1``: a
+    batch outside a group takes the full path, whose host-built ladders lie
+    a rounding from the grouped path's); and
+    NCCL refusing two ranks on the card on both ranks. Prints both ranks'
+    ms/step and serving rates beside the card's name and power limit.
 
 The splits of phases 4-9 are written here from seeded numpy, with one car
 generator: the val split in the reference's 7-stream rgb-detection pickle
@@ -121,8 +147,10 @@ counted the same way: serving and training (phases 5 and 9), the refine
 cascade's stage-1 serving, training and serving (phase 10), and SUN-RGBD
 training and serving (phase 11), bfloat16 training, float16 training with
 the float32 fine-tune and bfloat16 serving (phase 13), the people cascade's
-stage-1 and refine training and serving (phase 14) and each protocol
-runner (phase 15); only kernel 1 runs there.
+stage-1 and refine training and serving (phase 14), each protocol
+runner (phase 15), and world-1 training and both world-1 servings and the
+2-rank training (8 steps) and serving, both ranks' launches (phase 16);
+only kernel 1 runs there.
 ``main_path_launches`` is their sum. Kernel 1's ``family_shapes`` holds its
 phase-12 numbers. Launches that compare a kernel with its plain version are
 not counted. ``bound_ms`` is
@@ -610,17 +638,19 @@ def phase_model(spec, device, model, dataset, tag: str = "model") -> None:
               f"{(g - c).abs().max().item():.3e} (atol/rtol 1e-4)")
 
 
-def phase_driver(model, split: dict, work: str, opts=(), tag: str = "driver") -> dict:
+def phase_driver(model, split: dict, work: str, opts=(), tag: str = "driver",
+                 weights_name: str = "smoke_init.pth") -> dict:
     """The port's CLI entry point on the card over ``split`` (with the
-    config overrides ``opts``); returns each kernel's launches in that run
-    and the evaluator's car APs."""
+    config overrides ``opts``), ``model`` saved as ``weights_name``; returns
+    each kernel's launches in that run, the evaluator's car APs, the result
+    directory and the frustum count."""
     import math
 
     from frustum_convnet_tpu_torch.engine import checkpoints
     from frustum_convnet_tpu_torch.engine import test as driver
     from frustum_convnet_tpu_torch.ops import native
 
-    weights = os.path.join(work, "smoke_init.pth")
+    weights = os.path.join(work, weights_name)
     checkpoints.save_checkpoint(weights, model)
     if not native.native_available():
         raise AssertionError("the native NMS and evaluator did not build "
@@ -677,7 +707,8 @@ def phase_driver(model, split: dict, work: str, opts=(), tag: str = "driver") ->
     print(f"[{tag}] car AP 2D/BEV/3D (easy, moderate, hard): "
           f"{ap['car']['detection']} {ap['car']['detection_ground']} "
           f"{ap['car']['detection_3d']}")
-    return {"counts": counts, "ap": ap["car"]}
+    return {"counts": counts, "ap": ap["car"], "result_dir": out["result_dir"],
+            "frustums": stats["frustums"]}
 
 
 def labeled_batch(dataset, indices, num_scales: int) -> dict:
@@ -1425,6 +1456,481 @@ def phase_precision_profiler(prof_f32: dict) -> dict:
     return times
 
 
+class FixedDraws:
+    """A dataset whose item draws (point resampling, flip, shift) depend on
+    the item alone. The loader keys a batch's draws by the process index, as
+    the JAX loader does, so only such a dataset gives one process and N
+    ranks the same global batches."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i, rng=None):
+        return self.dataset.__getitem__(i, np.random.default_rng((11, int(i))))
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+
+def fixed_draws(make_datasets):
+    """``engine.train.make_datasets`` with every split through ``FixedDraws``."""
+    return lambda cfg: tuple(FixedDraws(d) for d in make_datasets(cfg))
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _Group:
+    """The environment of ``parallel.mesh`` for rank ``rank`` of ``world``
+    on a fresh localhost port, set while the block runs."""
+
+    KEYS = ("FRUSTUM_COORDINATOR", "FRUSTUM_NUM_PROCESSES", "FRUSTUM_PROCESS_ID")
+
+    def __init__(self, world: int = 1, rank: int = 0, port: int | None = None):
+        self.values = (f"localhost:{port or _free_port()}", str(world), str(rank))
+
+    def env(self) -> dict:
+        return dict(zip(self.KEYS, self.values))
+
+    def __enter__(self):
+        os.environ.update(self.env())
+
+    def __exit__(self, *exc):
+        for k in self.KEYS:
+            os.environ.pop(k, None)
+
+
+def same_results(got_dir: str, want_dir: str, tag: str) -> tuple:
+    """``tests/test_torch_infer.py``'s comparator: the same files, and in
+    each the same lines in order, every %.4f field within one unit of its
+    last digit and the %f score within two. Returns (lines compared, lines
+    byte-identical)."""
+    files = sorted(os.listdir(want_dir))
+    if sorted(os.listdir(got_dir)) != files:
+        raise AssertionError(f"[{tag}] result files differ from {want_dir}")
+    n = same = 0
+    for name in files:
+        with open(os.path.join(got_dir, name)) as a, open(os.path.join(want_dir, name)) as b:
+            got, want = a.read().splitlines(), b.read().splitlines()
+        if len(got) != len(want):
+            raise AssertionError(f"[{tag}] {name}: {len(got)} lines, want {len(want)}")
+        for lg, lw in zip(got, want):
+            fg, fw = lg.split(), lw.split()
+            if (fg[:3] != fw[:3] or len(fg) != len(fw)
+                    or np.abs(np.float64(fg[3:15]) - np.float64(fw[3:15])).max() > 1.01e-4
+                    or abs(float(fg[15]) - float(fw[15])) > 2.01e-6):
+                raise AssertionError(f"[{tag}] {name}: {lg!r} vs {lw!r}")
+            n += 1
+            same += lg == lw
+    return n, same
+
+
+def _param_distance(a: dict, b: dict) -> tuple:
+    """(max abs difference, relative L2 norm) over the parameters of two
+    state dicts (the running statistics left out, as JAX's test compares
+    ``state.params``)."""
+    diff = ref = worst = 0.0
+    for k, v in b.items():
+        if v.is_floating_point() and ".running_" not in k:
+            d = a[k].double().cpu() - v.double().cpu()
+            worst = max(worst, d.abs().max().item())
+            diff += d.norm().item() ** 2
+            ref += v.double().norm().item() ** 2
+    return worst, (diff / ref) ** 0.5
+
+
+def _first_losses(log_path: str) -> list:
+    """The numbers on a trainer log's first disp line (step 1, before any update)."""
+    with open(log_path) as f:
+        for line in f:
+            if " it 1/" in line and "total_loss" in line:
+                words = line.split("total_loss", 1)[1].split()
+                return [float(w) for w in words[::2]]
+    raise AssertionError(f"no first step logged in {log_path}")
+
+
+DP_STEPS = (2, 8)  # the 2-rank runs' steps at global batch 32
+DP_BOUND = 2.5e-3  # JAX's 5e-3 over its 2 Adam steps (test_multihost.py:108), a step
+# step 1 against one process, the worst leaf's relative L2: on an H100, 2
+# ranks read 6.9e-3 and a world-1 group 2.6e-3 (sums in another order),
+# and 6.0 with a BatchNorm backward not summed over the ranks (PERF.md §6)
+DP_GRAD_BOUND = 5e-2
+
+
+def dp_step(spec, pickle_dir: str, device, rank: int = 0, world: int = 1) -> dict:
+    """One float32 train step at full width, before the optimizer, of
+    ``seeded_model``'s weights on the split's first 32 train frustums
+    (``FixedDraws``): rank ``rank``'s contiguous share of them, under the
+    process group that is up, if any. Returns the global losses, each
+    parameter's gradient after the all-reduce and the BatchNorm running
+    statistics after the step's update, on the CPU."""
+    from frustum_convnet_tpu_torch.engine import train as trainer
+    from frustum_convnet_tpu_torch.parallel import train_step as ts
+
+    train_ds = FixedDraws(trainer.make_datasets(flagship_cfg(pickle_dir))[0])
+    lo, hi = rank * 32 // world, (rank + 1) * 32 // world
+    batch = labeled_batch(train_ds, range(lo, hi), spec.num_scales)
+    model = seeded_model(spec).to(device)
+    losses, _ = ts.loss_and_grads(model, spec, ts.TrainStepConfig(compute_metrics=False),
+                                  ts.to_device(batch, device))
+    return {"losses": {k: v.item() for k, v in losses.items()},
+            "grads": {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()},
+            "stats": {k: v.detach().cpu().double() for k, v in model.state_dict().items()
+                      if ".running_" in k}}
+
+
+def step_distance(got: dict, want: dict) -> dict:
+    """How far one ``dp_step`` lies from another: the largest relative
+    difference of a loss, and the worst gradient leaf and running statistic
+    in relative L2 norm, each as (distance, name)."""
+    return {"losses": max((abs(v - want["losses"][k]) / max(abs(want["losses"][k]), 1e-30), k)
+                          for k, v in got["losses"].items()),
+            "grads": max((_rel(v, want["grads"][k]), k) for k, v in got["grads"].items()),
+            "stats": max((_rel(v, want["stats"][k]), k) for k, v in got["stats"].items())}
+
+
+def _fmt_distance(d: dict) -> str:
+    return ", ".join(f"{k} {v:.3e} ({n})" for k, (v, n) in d.items())
+
+
+def _dp_args(pickle_dir: str, out_dir: str) -> list:
+    return ["--cfg", os.path.join(ROOT, "cfgs", "det_sample.yaml"), "--device", "cuda",
+            "DATA.DATA_ROOT", pickle_dir, "OUTPUT_DIR", out_dir,
+            "TRAIN.BATCH_SIZE", "32", "TEST.BATCH_SIZE", "32", "TRAIN.MAX_EPOCH", "1",
+            "disp", "4", "TPU.METRIC_INTERVAL", "-1", "USE_TFBOARD", "False"]
+
+
+def rank_main(job_path: str) -> int:
+    """One rank of phase 16 (b), started by ``phase_data_parallel`` as
+    ``chip_smoke.py --rank <job.json>`` with the environment of
+    ``parallel.mesh``: joins the group over gloo on the one card, takes
+    its share of ``dp_step`` on the job's ``grads`` split, trains each of
+    the job's ``train`` splits and serves its ``serve`` split, and saves
+    what it saw.
+    With ``"nccl": true`` it only checks that NCCL refuses the layout."""
+    sys.path.insert(0, ROOT)
+    from frustum_convnet_tpu_torch import configs
+    from frustum_convnet_tpu_torch.engine import test as driver
+    from frustum_convnet_tpu_torch.engine import train as trainer
+    from frustum_convnet_tpu_torch.parallel import mesh
+
+    with open(job_path) as f:
+        job = json.load(f)
+    if job.get("nccl"):
+        try:
+            mesh.maybe_initialize_distributed("cuda")
+        except RuntimeError as exc:
+            print(f"refused: {exc}")
+            return 0 if "two ranks on one device" in str(exc) else 1
+        mesh.shutdown()
+        return 1
+    mesh.maybe_initialize_distributed("cuda", backend="gloo")
+    driver.strict_fp32()
+    rank = mesh.process_index()
+    out = {"rank": rank, "world": mesh.process_count(), "train": []}
+    try:
+        if "grads" in job:
+            spec = configs.get_model_spec(flagship_cfg())
+            out["grads"] = dp_step(spec, job["grads"], mesh.rank_device("cuda"), rank,
+                                   mesh.process_count())
+        trainer.make_datasets = fixed_draws(trainer.make_datasets)
+        for pickle_dir in job.get("train", ()):
+            _reset_counts()
+            res = trainer.main(_dp_args(pickle_dir, f"{pickle_dir}_out{rank}"))
+            epoch = res["epochs"][0]
+            out["train"].append({
+                "launches": _counts()["group_depth_point_multi"], "backend": res["backend"],
+                "steps": epoch["steps"], "ms_per_step": epoch["ms_per_step"],
+                "val": epoch["val"], "train": epoch["train"],
+                "state": {k: v.cpu() for k, v in res["state"].model.state_dict().items()}})
+            del res
+        if "serve" in job:
+            _reset_counts()
+            served = driver.main(job["serve"] + ["OUTPUT_DIR", f"{job['out']}_serve{rank}"])
+            out["serve"] = {"launches": _counts()["group_depth_point_multi"],
+                            "stats": served["stats"], "result_dir": served["result_dir"],
+                            "ap": served["ap"]}
+    finally:
+        mesh.shutdown()
+    torch.save(out, f"{job['out']}.rank{rank}.pt")
+    return 0
+
+
+def _run_ranks(job: dict, work: str, tag: str, world: int = 2, timeout: int = 600) -> list:
+    """``world`` ranks of ``rank_main`` on the card; their return codes."""
+    path = os.path.join(work, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, **_Group(world, rank, port).env())
+        log = open(os.path.join(work, f"{tag}.rank{rank}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                        "--rank", path], cwd=ROOT, env=env,
+                                       stdout=log, stderr=subprocess.STDOUT), log))
+    try:
+        for p, _ in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    codes = [p.returncode for p, _ in procs]
+    for rank, code in enumerate(codes):
+        with open(os.path.join(work, f"{tag}.rank{rank}.log")) as f:
+            tail = f.read()[-3000:]
+        print(f"[data parallel] {tag} rank {rank} exit {code}; its log ends:\n{tail}"
+              if code else f"[data parallel] {tag} rank {rank} exit 0")
+    return codes
+
+
+def phase_dp_gradients(spec, work: str, train_dir: str, device) -> dict:
+    """Phase 16's step-1 check, before Adam's near-sign steps blur a
+    difference: ``dp_step`` on the first 32 frustums of ``train_dir``
+    without a group twice (the card's own distance from run to run), in a
+    world-1 NCCL group (the group's ``mean2 - mean^2`` variance) and on
+    two ranks sharing the card over gloo (16 frustums each, the ranks'
+    gradients bitwise equal). Against the first run without a group, the
+    losses lie within 1e-4 and every gradient leaf and running statistic
+    within ``DP_GRAD_BOUND`` in relative L2 norm. Returns the distances."""
+    from frustum_convnet_tpu_torch.parallel import mesh
+
+    plain, again = (dp_step(spec, train_dir, device) for _ in range(2))
+    with _Group():
+        mesh.maybe_initialize_distributed("cuda")
+        try:
+            backend = mesh.backend()
+            grouped = dp_step(spec, train_dir, device)
+        finally:
+            mesh.shutdown()
+    prefix = os.path.join(work, "dp2_grads")
+    codes = _run_ranks({"grads": train_dir, "out": prefix}, work, "dp2_grads")
+    if codes != [0, 0]:
+        raise AssertionError(f"[data parallel] 2 ranks' step exited {codes}")
+    r0, r1 = (torch.load(f"{prefix}.rank{r}.pt", weights_only=False)["grads"] for r in (0, 1))
+    if any(not torch.equal(v, r1["grads"][k]) for k, v in r0["grads"].items()):
+        raise AssertionError("[data parallel] the 2 ranks' summed gradients differ")
+    dist = {"the card again": step_distance(again, plain),
+            f"a world-1 {backend} group": step_distance(grouped, plain),
+            "2 ranks over gloo": step_distance(r0, plain)}
+    for tag, d in dist.items():
+        print(f"[data parallel] step 1 at batch 32, {tag} against one process: "
+              f"{_fmt_distance(d)} (bounds 1e-4 losses, {DP_GRAD_BOUND:.0e} leaves)")
+    bad = [tag for tag, d in dist.items() if d["losses"][0] > 1e-4
+           or max(d["grads"][0], d["stats"][0]) > DP_GRAD_BOUND]
+    if bad or backend != "nccl":
+        raise AssertionError(f"[data parallel] step 1 off one process: {bad}, "
+                             f"world-1 backend {backend}")
+    return dist
+
+
+def dp_gradients_main() -> int:
+    """``chip_smoke.py --dp-gradients``: phase 16's step-1 check alone, on
+    the first 32 frustums of phase 9's split (the same seed)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from frustum_convnet_tpu_torch import configs
+    from frustum_convnet_tpu_torch.engine import test as driver
+
+    driver.strict_fp32()
+    spec = configs.get_model_spec(flagship_cfg())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as work:
+        train_dir = os.path.join(work, "train_pickles")
+        make_train_split(train_dir, spec, num_train=32, num_val=32)
+        phase_dp_gradients(spec, work, train_dir, torch.device("cuda", 0))
+    return 0
+
+
+def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: dict,
+                        trained: dict, card: str) -> dict:
+    """Phase 16: the data-parallel layer on the one card. The step-1 check
+    (``phase_dp_gradients``); (a) world 1 over
+    NCCL through the CLIs: phase 9's training (its split, batch 32, 2
+    epochs), its parameters against phase 9's beside a second run of phase
+    9's, and serving phase 5's split, with phase 9's setup and with
+    phase 5's weights, whose files must match phase 5's; (b) two ranks
+    sharing the card over gloo: 2 and 8 steps at global batch 32 (16 a
+    rank), bitwise-equal ranks within each run, parameters within
+    ``DP_BOUND`` a step of one process on the same global batches, then
+    phase 5's split
+    served on both ranks in groups of one batch with one process's files and
+    AP; NCCL refuses two ranks on
+    the card. Returns kernel 1's launches on each path."""
+    import math
+
+    from frustum_convnet_tpu_torch.engine import checkpoints
+    from frustum_convnet_tpu_torch.engine import test as driver
+    from frustum_convnet_tpu_torch.engine import train as trainer
+    from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+    from frustum_convnet_tpu_torch.parallel import mesh
+
+    phase_dp_gradients(spec, work, train_dir, torch.device("cuda", 0))
+    paths = {}
+    # (a) world 1 over NCCL: the trainer, as phase 9 ran it
+    out_dir = os.path.join(work, "dp1_train")
+    args = ["--cfg", os.path.join(ROOT, "cfgs", "det_sample.yaml"), "--device", "cuda",
+            "DATA.DATA_ROOT", train_dir, "TRAIN.BATCH_SIZE", "32",
+            "TEST.BATCH_SIZE", "32", "disp", "8", "TPU.METRIC_INTERVAL", "-1",
+            "USE_TFBOARD", "False", "TRAIN.MAX_EPOCH", "2"]
+    calls = mesh.all_reduce.calls
+    with _Group():
+        _reset_counts()
+        res = trainer.main(args + ["OUTPUT_DIR", out_dir])
+        paths["dp_world1_training"] = _counts()["group_depth_point_multi"]
+    collectives = mesh.all_reduce.calls - calls
+    _, val_ds = trainer.make_datasets(flagship_cfg(train_dir))
+    steps = sum(e["steps"] for e in res["epochs"])
+    evals = 2 * math.ceil(len(val_ds) / 32)
+    losses = _logged_losses(os.path.join(out_dir, "train.log"))
+    if (res["backend"], res["world"]) != ("nccl", 1) or mesh.initialized():
+        raise AssertionError(f"[data parallel] world-1 group: {res['backend']}, "
+                             f"world {res['world']}, left up {mesh.initialized()}")
+    if steps != 64 or paths["dp_world1_training"] < steps + evals:
+        raise AssertionError(f"[data parallel] {steps} steps, "
+                             f"{paths['dp_world1_training']} kernel launches")
+    if collectives < 2 * steps or len(losses) < 64 or not np.isfinite(losses).all():
+        raise AssertionError(f"[data parallel] {collectives} NCCL all-reduces, "
+                             f"losses {losses[:16]}")
+    # phase 9 once more without a group: the 64-step distance the card's own
+    # nondeterminism leaves, the baseline for the group's
+    again_dir = os.path.join(work, "dp0_train")
+    trainer.main(args + ["OUTPUT_DIR", again_dir])
+    final, again = (checkpoints.checkpoint_paths(d)["final"] for d in (out_dir, again_dir))
+    grouped, repeat, plain = (torch.load(p, map_location="cpu", weights_only=True)["state_dict"]
+                              for p in (final, again, trained["final"]))
+    worst, rel = _param_distance(grouped, plain)
+    worst0, rel0 = _param_distance(repeat, plain)
+    steady = res["epochs"][1]
+    print(f"[data parallel] world 1 over NCCL, trainer 2 epochs of 32 steps at batch 32 "
+          f"and {evals} eval batches: {paths['dp_world1_training']} kernel launches, "
+          f"{collectives} NCCL all-reduces ({collectives / (steps + evals):.1f} a step), "
+          f"{len(losses)} logged losses, all finite")
+    print(f"[data parallel] {card}: world-1 group steady {steady['ms_per_step']:.3f} ms/step, "
+          f"without a group (phase 9) {trained['steady']['ms_per_step']:.3f} ms/step "
+          f"(CUDA events)")
+    print(f"[data parallel] world-1 group against phase 9 after 64 Adam steps: "
+          f"parameters max abs {worst:.3e}, relative L2 {rel:.3e}; phase 9 run again "
+          f"without a group: max abs {worst0:.3e}, relative L2 {rel0:.3e}")
+
+    # (a) serving under the group: phase 9's setup trained once more, and
+    # phase 5's weights, whose files must match phase 5's
+    weights_model = FrustumConvNet(spec)
+    checkpoints.load_checkpoint(final, weights_model)
+    with _Group():
+        trained_serving = phase_driver(weights_model, split, work, tag="dp world-1 serving",
+                                       weights_name="dp1_final.pth")
+    with _Group():
+        same = phase_driver(model, split, work, tag="dp world-1 serving phase-5 weights",
+                            weights_name="dp1_phase5.pth")
+    paths["dp_world1_serving"] = trained_serving["counts"]["group_depth_point_multi"]
+    paths["dp_world1_serving_phase5_weights"] = same["counts"]["group_depth_point_multi"]
+    n_lines, n_same = same_results(same["result_dir"], served["result_dir"], "data parallel")
+    if same["ap"] != served["ap"]:
+        raise AssertionError(f"[data parallel] world-1 AP {same['ap']} vs {served['ap']}")
+    print(f"[data parallel] world-1 serving with phase 5's weights: {n_lines} result lines "
+          f"match phase 5's in order ({n_same} byte-identical), equal AP")
+
+    # (b) two ranks on the card over gloo
+    runs = []
+    for n in DP_STEPS:
+        d = os.path.join(work, f"dp2_{n}steps")
+        make_train_split(d, spec, num_train=32 * n, num_val=80)
+        runs.append(d)
+    # serving in groups of one batch: a batch left out of a group (a rank's
+    # or a process's last) takes the full path, whose host-built ladders lie
+    # a rounding from the grouped path's device-built ones, so one process
+    # and two ranks would send different batches down different paths
+    weights = os.path.join(work, "dp1_phase5.pth")
+    serve_args = ["--cfg", os.path.join(ROOT, "cfgs", "det_sample.yaml"), "--device", "cuda",
+                  "--gt_dir", split["gt_dir"], "--idx_path", split["idx_path"],
+                  "DATA.DATA_ROOT", split["pickle_dir"], "TEST.BATCH_SIZE", "32",
+                  "TPU.INFER_GROUP", "1", "TEST.WEIGHTS", weights]
+    prefix = os.path.join(work, "dp2")
+    codes = _run_ranks({"train": runs, "serve": serve_args, "out": prefix}, work, "dp2")
+    if codes != [0, 0]:
+        raise AssertionError(f"[data parallel] 2 ranks exited {codes}")
+    ranks = [torch.load(f"{prefix}.rank{r}.pt", weights_only=False) for r in (0, 1)]
+    trainer_make = trainer.make_datasets
+    trainer.make_datasets = fixed_draws(trainer_make)
+    try:
+        single = []
+        for d in runs:
+            res = trainer.main(_dp_args(d, f"{d}_single"))
+            single.append({k: v.cpu() for k, v in res["state"].model.state_dict().items()})
+            del res
+    finally:
+        trainer.make_datasets = trainer_make
+    paths["dp_2rank_training"] = 0
+    for i, (n, d) in enumerate(zip(DP_STEPS, runs)):
+        t0, t1 = (r["train"][i] for r in ranks)
+        if any(not torch.equal(v, t1["state"][k]) for k, v in t0["state"].items()):
+            raise AssertionError(f"[data parallel] {n} steps: the ranks' states differ")
+        if (t0["backend"], t0["steps"], t0["val"]) != ("gloo", n, t1["val"]):
+            raise AssertionError(f"[data parallel] {n} steps: {t0['backend']}, "
+                                 f"{t0['steps']} steps, val {t0['val']} vs {t1['val']}")
+        first, first_single = (_first_losses(os.path.join(p, "train.log"))
+                               for p in (f"{d}_out0", f"{d}_single"))
+        step1 = max(abs(a - b) / max(abs(b), 1e-6) for a, b in zip(first, first_single))
+        worst, rel = _param_distance(t0["state"], single[i])
+        if step1 > 1e-4 or not worst <= DP_BOUND * n:
+            raise AssertionError(f"[data parallel] {n} steps: step-1 losses and metrics "
+                                 f"{step1:.3e} from one process (bound 1e-4), parameters "
+                                 f"{worst:.3e} (bound {DP_BOUND * n:.1e})")
+        if not os.path.exists(os.path.join(f"{d}_out0", "train.log")) or os.path.exists(f"{d}_out1"):
+            raise AssertionError(f"[data parallel] {n} steps: not only the chief wrote")
+        if n == max(DP_STEPS):
+            paths["dp_2rank_training"] = t0["launches"] + t1["launches"]
+        print(f"[data parallel] 2 ranks over gloo, {n} steps at global batch 32: ranks "
+              f"bitwise equal; against one process, step-1 losses and metrics within "
+              f"{step1:.3e} (bound 1e-4), parameters max abs {worst:.3e} (bound "
+              f"{DP_BOUND * n:.1e}), relative L2 {rel:.3e}; {t0['launches']} + "
+              f"{t1['launches']} kernel launches")
+        print(f"[data parallel] {card}: 2 ranks sharing the card, {n} steps: "
+              f"{t0['ms_per_step']:.3f} / {t1['ms_per_step']:.3f} ms/step (rank 0 / 1, "
+              f"CUDA events, first epoch)")
+    one = driver.main(serve_args + ["OUTPUT_DIR", f"{prefix}_serve_single"])
+    s0, s1 = (r["serve"] for r in ranks)
+    if s1["result_dir"] is not None or os.path.exists(f"{prefix}_serve1"):
+        raise AssertionError("[data parallel] rank 1 wrote serving results")
+    if s0["stats"]["frustums"] + s1["stats"]["frustums"] != served["frustums"]:
+        raise AssertionError(f"[data parallel] ranks served {s0['stats']['frustums']} + "
+                             f"{s1['stats']['frustums']} frustums")
+    n_lines, n_same = same_results(s0["result_dir"], one["result_dir"],
+                                   "data parallel 2 ranks")
+    if s0["ap"] != one["ap"]:
+        raise AssertionError(f"[data parallel] 2-rank AP {s0['ap']} vs {one['ap']}")
+    paths["dp_2rank_serving"] = s0["launches"] + s1["launches"]
+    print(f"[data parallel] 2 ranks serving phase 5's split in groups of one batch: "
+          f"{s0['stats']['frustums']} + {s1['stats']['frustums']} frustums, "
+          f"{s0['launches']} + {s1['launches']} kernel launches; {n_lines} result lines "
+          f"match one process's in order ({n_same} byte-identical), equal AP; only rank "
+          f"0 wrote")
+    print(f"[data parallel] {card}: serving in groups of one batch, steady "
+          f"{s0['stats']['steady_frustums_per_s']} / {s1['stats']['steady_frustums_per_s']} "
+          f"frustums/s on ranks 0 / 1 sharing the card, one process "
+          f"{one['stats']['steady_frustums_per_s']}")
+
+    codes = _run_ranks({"nccl": True}, work, "dp2_nccl", timeout=300)
+    if codes != [0, 0]:
+        raise AssertionError(f"[data parallel] NCCL with 2 ranks on the card: exits {codes}")
+    print("[data parallel] NCCL with 2 ranks on one card: refused on both ranks")
+    return paths
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1503,6 +2009,9 @@ def main() -> int:
         people = phase_people(work, num_frames=384)
         # 15. the protocol runners at a short size
         runners = phase_runners(work)
+        # 16. the data-parallel layer: world 1 over NCCL, 2 ranks over gloo
+        data_parallel = phase_data_parallel(spec, work, train_dir, model, split, served,
+                                            train, card)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
@@ -1513,7 +2022,7 @@ def main() -> int:
     paths = {"serving": serve_counts, "training": train["counts"]}
     paths.update({k: {"group_depth_point_multi": v}
                   for k, v in {**refine, **sunrgbd, **precision, **people,
-                               **runners}.items()})
+                               **runners, **data_parallel}.items()})
     records = []
     for name, launches, numbers in (
             ("group_depth_point_multi", train["counts"]["group_depth_point_multi"],
@@ -1538,4 +2047,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-gradients"]:
+        sys.exit(dp_gradients_main())
     sys.exit(main())

@@ -1,4 +1,4 @@
-"""Inference/eval driver CLI of the port, on one device:
+"""Inference/eval driver CLI of the port, on one device or one rank a device:
 ``python -m frustum_convnet_tpu_torch.engine.test --cfg <yaml> [--device cuda] [KEY VAL]...``
 
 Counterpart of ``frustum_convnet_tpu/engine/test.py``: batched no-grad
@@ -16,10 +16,21 @@ foreground count overflows the cap re-runs through the full decode). The
 model computes in ``TPU.INFER_DTYPE`` (its trunk and heads in
 ``TPU.TRUNK_DTYPE``) after the float32 grouping; decode and the host
 postprocess take its heads' outputs, which are at least float32. The
-mesh, multi-process and all-gather branches of the JAX driver are not
-ported yet. The numpy post-processing (foreground selection, box decode,
-packing for the writer) is carried over from the JAX driver, whose module
-imports jax at the top.
+numpy post-processing (foreground selection, box decode, packing for the
+writer) is carried over from the JAX driver, whose module imports jax at
+the top.
+
+Several cards serve as N processes, one a card, each with ``--device cuda``
+and the environment of ``parallel.mesh`` (``FRUSTUM_COORDINATOR=host:port``,
+``FRUSTUM_NUM_PROCESSES=N``, ``FRUSTUM_PROCESS_ID=r``). Serving is
+embarrassingly parallel: rank r streams whole batches r, r + N, ...
+(``BatchLoader(batch_shard=(r, N))``, whose item draws match a single
+process's) through its own grouped forward, and one all-gather merges the
+detection dicts at the end (``mesh.allgather_detections``). Rank 0 alone
+makes the result directory, writes the files and the log and runs AP; the
+other ranks return the merged detections. This per-rank batch sharding
+also stands in for the JAX driver's sharding of one group over the devices
+of a single process.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from frustum_convnet_tpu_torch.engine.loader import BatchLoader
 from frustum_convnet_tpu_torch.evaluation.kitti_writer import write_detection_results
 from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.utils.logger import get_logger
 
 INIT_SEED = 3  # the JAX driver's init seed for an evaluation without weights
@@ -233,11 +245,16 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
     until the host copies a result back). The final partial group runs batch
     by batch through the full path.
 
+    Under a process group of N > 1 ranks this rank streams its batch shard
+    and the ranks' detections are merged at the end, so every rank returns
+    them all; the stats are this rank's.
+
     Returns (det_results, stats): the KITTI writer's detection dict and
     {"frustums", "seconds", "frustums_per_s", "steady_frustums_per_s",
-    "sections", "detections", "overflow_reruns"}: ``sections`` counts the
-    selected foreground sections (argmax fallbacks included), ``detections``
-    those left after degenerate boxes are dropped.
+    "sections", "detections", "overflow_reruns"}: ``frustums`` counts the
+    real frustums streamed here, ``sections`` the selected foreground
+    sections (argmax fallbacks included), ``detections`` those left after
+    degenerate boxes are dropped.
     """
     strict_fp32()
     model.eval()
@@ -250,10 +267,12 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
         model, spec, method, cap,
         z_grids=dataset.ref_depths() if use_basis else None)
     infer_full = build_infer_fn(model, spec)  # tail batches, overflow re-runs
+    pc, pi = mesh.process_count(), mesh.process_index()
     loader = BatchLoader(dataset, batch_size, spec.num_scales, shuffle=False,
                          drop_last=False, pad_last=True, seed=0,
-                         num_workers=num_workers)
-    num_groups = (len(loader) + group - 1) // group
+                         num_workers=num_workers,
+                         batch_shard=(pi, pc) if pc > 1 else None)
+    num_groups = (len(range(pi, len(loader), pc)) + group - 1) // group
     det_results: dict = {}
     n_dets = n_sections = n_overflow = 0
 
@@ -296,8 +315,9 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
     t_start = time.time()
     pending: deque = deque()  # (device outputs, host batches), oldest first
     batches: list = []
-    gi = 0
+    gi = n = 0
     for batch in loader.epoch(0):
+        n += int(batch["_real"])
         batches.append(batch)
         if len(batches) < group:
             continue
@@ -324,13 +344,13 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
         n_dets += full_path(batch)
 
     elapsed = time.time() - t_start
-    n = len(dataset)
     steady = None
     warm_note = ""
     if warm["t"] is not None and warm["n"] > 0:
         steady = warm["n"] / max(t_grouped - warm["t"], 1e-9)
         warm_note = f"; steady-state {steady:.0f} frustums/s after the first group"
-    logger.info(f"streamed {n} frustums in {elapsed:.2f}s = "
+    where = f" on rank {pi} of {pc}" if pc > 1 else ""
+    logger.info(f"streamed {n} frustums{where} in {elapsed:.2f}s = "
                 f"{n / elapsed:.0f} frustums/s end-to-end "
                 f"({n_sections} foreground sections, {n_dets} detections, "
                 f"{n_overflow} overflow re-runs)"
@@ -339,6 +359,8 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
              "steady_frustums_per_s": steady, "sections": n_sections,
              "detections": n_dets,
              "overflow_reruns": n_overflow}
+    if pc > 1:  # one collective merges the ranks' detection dicts
+        det_results = mesh.allgather_detections(det_results)
     return det_results, stats
 
 
@@ -380,7 +402,8 @@ def package_test_results(result_dir: str) -> str:
 
 def main(argv=None):
     """Run the driver; returns {"ap": AP results or None, "stats": run_test's
-    stats, "result_dir": the written ``data`` directory}."""
+    stats, "result_dir": the written ``data`` directory (None off rank 0),
+    "det_results": the detections of every rank}."""
     parser = argparse.ArgumentParser(description="Test FrustumConvNet (PyTorch)")
     parser.add_argument("--cfg", dest="cfg_file", required=True)
     parser.add_argument("--device", default="cuda",
@@ -403,10 +426,18 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is visible")
+    # the process group before anything touches the device (env-gated)
+    with mesh.distributed(device) as device:
+        return _serve(cfg, args, device, dtype, trunk_dtype)
 
+
+def _serve(cfg, args, device, dtype, trunk_dtype) -> dict:
+    mesh.make_mesh(cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES)
+    chief = mesh.is_chief()
     result_dir = os.path.join(cfg.OUTPUT_DIR, cfg.SAVE_SUB_DIR, "result")
-    os.makedirs(result_dir, exist_ok=True)
-    logger = get_logger(os.path.join(result_dir, "test.log"))
+    if chief:  # files belong to rank 0; the other ranks log to the console
+        os.makedirs(result_dir, exist_ok=True)
+    logger = get_logger(os.path.join(result_dir, "test.log") if chief else None)
 
     spec = configs.get_model_spec(cfg)
     model = FrustumConvNet(spec, dtype=dtype, trunk_dtype=trunk_dtype)
@@ -445,6 +476,9 @@ def main(argv=None):
         model, spec, dataset, cfg.TEST.BATCH_SIZE, cfg.TEST.METHOD, logger,
         group=cfg.TPU.INFER_GROUP, inflight=cfg.TPU.INFER_INFLIGHT,
         points_dtype=configs.get_points_upload_dtype(cfg))
+    if not chief:  # run_test merged every rank's detections; rank 0 writes
+        return {"ap": None, "stats": stats, "result_dir": None,
+                "det_results": det_results}
     nms_thresh = cfg.TEST.THRESH if cfg.TEST.METHOD == "nms" else None
     data_dir = write_detection_results(result_dir, det_results, split_ids,
                                        nms_threshold=nms_thresh)
@@ -460,7 +494,8 @@ def main(argv=None):
                                       classes=("car", "pedestrian", "cyclist")
                                       if not cfg.DATA.CAR_ONLY else ("car",))
         logger.info(f"AP results: {results}")
-    return {"ap": results, "stats": stats, "result_dir": data_dir}
+    return {"ap": results, "stats": stats, "result_dir": data_dir,
+            "det_results": det_results}
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""SUN-RGBD inference/eval driver CLI of the port, on one device:
+"""SUN-RGBD inference/eval driver CLI of the port, on one device or one rank a device:
 ``python -m frustum_convnet_tpu_torch.engine.test_sunrgbd --cfg <yaml> [--device cuda] [KEY VAL]...``
 
 Counterpart of ``frustum_convnet_tpu/engine/test_sunrgbd.py``: batched
@@ -14,8 +14,12 @@ ahead, G batches go to the device as one flattened forward (the tail group
 padded by repeating its last batch), and up to ``inflight`` groups queue on
 the device while the host post-processes finished ones. The model computes
 in ``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``, as in ``engine/test.py``.
-The mesh and
-multi-process branches of the JAX driver are not ported yet.
+
+Several cards serve as N processes, one a card, as ``engine/test.py`` does
+(``--device cuda`` and the environment of ``parallel.mesh``): rank r
+streams whole batches r, r + N, ..., one all-gather merges the detection
+dicts, and rank 0 alone makes the result directory, writes the log and
+runs the VOC AP; the other ranks return the merged detections.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from frustum_convnet_tpu_torch.engine.test import (INIT_SEED, load_state_for_tes
 from frustum_convnet_tpu_torch.evaluation.sunrgbd_eval import build_gt_all, eval_det
 from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.utils.logger import get_logger
 
 FG_PROB_THRESH = 0.5
@@ -89,20 +94,26 @@ def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
                      points_dtype: torch.dtype = torch.float16):
     """Stream ``dataset`` through ``model`` on its device; accumulate detections.
 
+    Under a process group of N > 1 ranks this rank streams its batch shard
+    and every rank returns the merged detections; the stats are this rank's.
+
     Returns (det_results, stats): {img: {class: [[x1, y1, x2, y2, tx, ty, tz,
     l, w, h, ry, score]]}} and {"frustums", "seconds", "frustums_per_s",
     "steady_frustums_per_s", "sections", "detections", "degenerate"}:
-    ``sections`` counts the selected sections, ``detections`` those kept and
-    ``degenerate`` those dropped for a size under 1 cm."""
+    ``frustums`` counts the real frustums streamed here, ``sections`` the
+    selected sections, ``detections`` those kept and ``degenerate`` those
+    dropped for a size under 1 cm."""
     strict_fp32()
     model.eval()
     device = next(model.parameters()).device
     group = max(int(group), 1)
     infer_group = build_infer_group_flat_fn(model, spec)
+    pc, pi = mesh.process_count(), mesh.process_index()
     loader = BatchLoader(dataset, batch_size, spec.num_scales, shuffle=False,
                          drop_last=False, pad_last=True, seed=0,
-                         num_workers=num_workers)
-    num_batches = len(loader)
+                         num_workers=num_workers,
+                         batch_shard=(pi, pc) if pc > 1 else None)
+    num_batches = len(range(pi, len(loader), pc))
     det_results: dict = {}
     counts = {"sections": 0, "detections": 0, "degenerate": 0}
 
@@ -159,7 +170,9 @@ def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
     t_start = time.time()
     pending: deque = deque()
     acc: list = []
+    n = 0
     for bi, batch in enumerate(loader.epoch(0)):
+        n += int(batch["_real"])
         acc.append(batch)
         if len(acc) == group:
             pending.append((dispatch(acc), acc))
@@ -175,10 +188,10 @@ def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
         process(*pending.popleft())
     t_end = time.time()
     elapsed = t_end - t_start
-    n = len(dataset)
     steady = (warm["n"] / max(t_end - warm["t"], 1e-9)
               if warm["t"] is not None and warm["n"] > 0 else None)
-    logger.info(f"streamed {n} frustums in {elapsed:.2f}s = "
+    where = f" on rank {pi} of {pc}" if pc > 1 else ""
+    logger.info(f"streamed {n} frustums{where} in {elapsed:.2f}s = "
                 f"{n / elapsed:.0f} frustums/s end-to-end ({counts['sections']} "
                 f"selected sections, {counts['detections']} detections, "
                 f"{counts['degenerate']} degenerate)"
@@ -186,6 +199,8 @@ def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
                    if steady else ""))
     stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
              "steady_frustums_per_s": steady, **counts}
+    if pc > 1:  # one collective merges the ranks' detection dicts
+        det_results = mesh.allgather_detections(det_results)
     return det_results, stats
 
 
@@ -208,7 +223,8 @@ def to_corner_results(det_results, nms_threshold=None):
 
 def main(argv=None):
     """Run the driver; returns {"ap": {class: AP} or None, "stats":
-    run_test_sunrgbd's stats, "result_dir"}."""
+    run_test_sunrgbd's stats, "result_dir" (None off rank 0), "det_results":
+    the detections of every rank}."""
     parser = argparse.ArgumentParser(description="Test FrustumConvNet on SUN-RGBD (PyTorch)")
     parser.add_argument("--cfg", dest="cfg_file", required=True)
     parser.add_argument("--device", default="cuda",
@@ -230,10 +246,18 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is visible")
+    # the process group before anything touches the device (env-gated)
+    with mesh.distributed(device) as device:
+        return _serve(cfg, args, device, dtype, trunk_dtype)
 
+
+def _serve(cfg, args, device, dtype, trunk_dtype) -> dict:
+    mesh.make_mesh(cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES)
+    chief = mesh.is_chief()
     result_dir = os.path.join(cfg.OUTPUT_DIR, cfg.SAVE_SUB_DIR, "result")
-    os.makedirs(result_dir, exist_ok=True)
-    logger = get_logger(os.path.join(result_dir, "test.log"))
+    if chief:  # files belong to rank 0; the other ranks log to the console
+        os.makedirs(result_dir, exist_ok=True)
+    logger = get_logger(os.path.join(result_dir, "test.log") if chief else None)
 
     spec = configs.get_model_spec(cfg)
     model = FrustumConvNet(spec, dtype=dtype, trunk_dtype=trunk_dtype)
@@ -250,6 +274,9 @@ def main(argv=None):
         model, spec, dataset, cfg.TEST.BATCH_SIZE, cfg.TEST.METHOD, logger,
         num_workers=cfg.NUM_WORKERS, inflight=cfg.TPU.INFER_INFLIGHT,
         group=cfg.TPU.INFER_GROUP, points_dtype=configs.get_points_upload_dtype(cfg))
+    if not chief:  # run_test_sunrgbd merged every rank's detections
+        return {"ap": None, "stats": stats, "result_dir": None,
+                "det_results": det_results}
     nms_thresh = cfg.TEST.THRESH if cfg.TEST.METHOD == "nms" else None
     pred_all = to_corner_results(det_results, nms_thresh)
 
@@ -261,7 +288,8 @@ def main(argv=None):
         _recs, _precs, aps = eval_det(pred_all, gt_all, ovthresh=cfg.IOU_THRESH,
                                       result_dir=result_dir)
         logger.info(f"AP results: {aps}")
-    return {"ap": aps, "stats": stats, "result_dir": result_dir}
+    return {"ap": aps, "stats": stats, "result_dir": result_dir,
+            "det_results": det_results}
 
 
 if __name__ == "__main__":

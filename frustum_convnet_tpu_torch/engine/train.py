@@ -1,4 +1,4 @@
-"""Training driver CLI of the port, on one device:
+"""Training driver CLI of the port, on one device or one rank a device:
 ``python -m frustum_convnet_tpu_torch.engine.train --cfg <yaml> [--device cuda] [KEY VAL]...``
 
 Counterpart of ``frustum_convnet_tpu/engine/train.py:86-392``: config merge,
@@ -24,7 +24,20 @@ As in the JAX driver:
   ``max(MAX_EPOCH - N, 0)`` on: the same model, parameters, Adam moments
   and schedule count.
 
-The mesh and multi-process branches are not ported yet.
+Data parallelism, as the JAX driver trains under its mesh
+(``engine/train.py:207-249`` of the JAX package): run one process a card,
+each with ``--device cuda`` and ``FRUSTUM_COORDINATOR=host:port``,
+``FRUSTUM_NUM_PROCESSES=N`` and ``FRUSTUM_PROCESS_ID=r`` (or a launcher's
+``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE`` with
+``FRUSTUM_DIST=auto``; ``parallel.mesh``). Rank r trains on
+``cuda:(r % device_count)`` over NCCL (gloo on the CPU) and reads its shard
+of every global batch, ``TRAIN.BATCH_SIZE / N`` frustums; the BatchNorm
+statistics, losses and metrics are the global batch's, the gradients are
+summed over the ranks, and the parameters stay bitwise equal on every rank.
+Every rank evaluates the val loader's short global tail whole, and the
+epoch weights it by its own count. Rank 0 alone writes ``train.log``, the
+scalars, the config snapshot and the checkpoints. ``main`` leaves a process
+group it joined itself before it returns.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from frustum_convnet_tpu_torch.engine.loader import BatchLoader
 from frustum_convnet_tpu_torch.engine.test import strict_fp32
 from frustum_convnet_tpu_torch.models import det
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.parallel.train_step import (
     TrainState, TrainStepConfig, build_eval_step, build_train_step_accum,
     init_accum, make_optimizer, multistep_lr, reset_schedule_count, to_device)
@@ -117,7 +131,8 @@ def run_epoch_train(step: _Step, state: TrainState, accum, loader, epoch,
     Returns (averages, stats): loss averages over every step and metric
     averages over the sampled steps; stats = {"steps", "frustums",
     "seconds", "ms_per_step", "frustums_per_s"}, timed on the device from
-    the first step's launch to the last step's end.
+    the first step's launch to the last step's end; the frustums are the
+    global batches' (every rank's shard).
     """
     n_steps = n_metric = n_frustums = 0
     clock = None
@@ -136,7 +151,7 @@ def run_epoch_train(step: _Step, state: TrainState, accum, loader, epoch,
             sub = {k: accum[k] for k in step.loss_keys}
             losses, metrics = step.fast_fn(state, sub, batch)
         n_steps += 1
-        n_frustums += len(batch_np["point_cloud"])
+        n_frustums += len(batch_np["point_cloud"]) * loader.process_count
         if (i + 1) % disp == 0 or i == 0:
             vals = {k: float(v) for k, v in {**losses, **metrics}.items()}
             line = " ".join(f"{k} {v:.4f}" for k, v in vals.items())
@@ -166,20 +181,29 @@ def run_epoch_train(step: _Step, state: TrainState, accum, loader, epoch,
     return avg, stats
 
 
-def run_epoch_eval(eval_fn, state: TrainState, loader, epoch, logger, writer,
-                   iou_key, device):
+def run_epoch_eval(eval_fn, eval_fn_tail, state: TrainState, loader, epoch,
+                   logger, writer, device) -> dict:
     """Validation epoch: batch-size-weighted averages over the FULL val set
-    (``drop_last=False``; the short tail batch runs as it is)."""
+    (``drop_last=False``). A full batch's values are the global batch's
+    (every rank's shard), weighted by the global batch size; the short
+    global tail runs whole on every rank through ``eval_fn_tail``, with no
+    collective, weighted by its own count, as in the JAX driver. Returns
+    the averages."""
     states = TrainingStates()
     for batch_np in loader.epoch(epoch):
-        losses, metrics = eval_fn(state, to_device(batch_np, device))
+        if batch_np.pop("_global_tail", False):
+            losses, metrics = eval_fn_tail(state, to_device(batch_np, device))
+            weight = len(batch_np["point_cloud"])
+        else:
+            losses, metrics = eval_fn(state, to_device(batch_np, device))
+            weight = loader.global_batch
         vals = {k: float(v) for k, v in {**losses, **metrics}.items()}
-        states.update_states(vals, n=len(batch_np["point_cloud"]))
+        states.update_states(vals, n=weight)
     result = states.get_states()
     logger.info(f"[val] epoch {epoch} " + states.format_states())
     if writer:
         writer.scalars({f"val/{k}": v for k, v in result.items()}, epoch)
-    return result.get(iou_key, 0.0)
+    return result
 
 
 def make_datasets(cfg):
@@ -197,7 +221,9 @@ def make_datasets(cfg):
 def main(argv=None):
     """Run the driver. Returns {"state": the final TrainState, "start_epoch",
     "best_prec", "best_epoch", "epochs": [{"epoch", "prec", "dtype" (the
-    epoch's compute dtype), **train stats}], "output_dir"}."""
+    epoch's compute dtype), "train" and "val" (the epoch's averages),
+    **train stats}], "output_dir", "rank", "world", "backend" (the process
+    group's, None without one)}."""
     parser = argparse.ArgumentParser(description="Train FrustumConvNet (PyTorch)")
     parser.add_argument("--cfg", dest="cfg_file", required=True)
     parser.add_argument("--device", default="cuda",
@@ -216,12 +242,22 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is visible")
+    # the process group before anything touches the device (env-gated)
+    with mesh.distributed(device) as device:
+        return _train(cfg, args, device, compute_dtype, trunk_dtype)
+
+
+def _train(cfg, args, device, compute_dtype, trunk_dtype) -> dict:
     strict_fp32()
+    world, rank = mesh.make_mesh(cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES), mesh.process_index()
+    chief = mesh.is_chief()
 
     output_dir = cfg.OUTPUT_DIR
-    os.makedirs(output_dir, exist_ok=True)
-    logger = get_logger(os.path.join(output_dir, "train.log"))
-    logger.info(f"config: {args.cfg_file} overrides: {args.opts} on {device}")
+    if chief:  # files belong to rank 0; the other ranks log to the console
+        os.makedirs(output_dir, exist_ok=True)
+    logger = get_logger(os.path.join(output_dir, "train.log") if chief else None)
+    logger.info(f"config: {args.cfg_file} overrides: {args.opts} on {device}"
+                + (f", rank {rank} of {world}" if mesh.initialized() else ""))
 
     seed = cfg.TRAIN.SEED
     np.random.seed(seed)
@@ -237,12 +273,22 @@ def main(argv=None):
     model.to(device)
 
     train_ds, val_ds = make_datasets(cfg)
+    # each rank reads its shard of every global batch; the val loader's
+    # short global tail comes whole to every rank
     train_loader = BatchLoader(train_ds, cfg.TRAIN.BATCH_SIZE, spec.num_scales,
                                shuffle=True, drop_last=True, seed=seed,
                                prefetch=cfg.TPU.PREFETCH,
+                               process_index=rank, process_count=world,
                                num_workers=cfg.NUM_WORKERS)
     val_loader = BatchLoader(val_ds, cfg.TEST.BATCH_SIZE, spec.num_scales,
-                             shuffle=False, drop_last=False)
+                             shuffle=False, drop_last=False,
+                             process_index=rank, process_count=world)
+    group = cfg.TPU.BN_GROUP_SIZE
+    if group > 0 and train_loader.local_batch % group:
+        raise ValueError(
+            f"TPU.BN_GROUP_SIZE {group} must divide each rank's batch: "
+            f"TRAIN.BATCH_SIZE {cfg.TRAIN.BATCH_SIZE} over {world} rank(s) is "
+            f"{train_loader.local_batch} a rank")
     logger.info(f"train {len(train_ds)} frustums / {len(train_loader)} batches; "
                 f"val {len(val_ds)} frustums")
 
@@ -288,17 +334,21 @@ def main(argv=None):
         fast_fn = build_train_step_accum(
             spec, dataclasses.replace(step_cfg, compute_metrics=False))
     eval_fn = build_eval_step(spec, step_cfg)
+    eval_fn_tail = build_eval_step(spec, step_cfg, local=True)
     iou_key = f"IoU_{cfg.IOU_THRESH}"
     accum_keys = det.LOSS_KEYS + det.metric_keys(cfg.IOU_THRESH)
-    writer = ScalarWriter(output_dir, "train") if cfg.USE_TFBOARD else None
-    save_cfg_snapshot(os.path.join(output_dir, "config_snapshot.yaml"), cfg, spec)
+    writer = ScalarWriter(output_dir, "train") if cfg.USE_TFBOARD and chief else None
+    if chief:
+        save_cfg_snapshot(os.path.join(output_dir, "config_snapshot.yaml"), cfg, spec)
 
     result = {"state": state, "start_epoch": start_epoch, "epochs": [],
-              "output_dir": output_dir}
+              "output_dir": output_dir, "rank": rank, "world": world,
+              "backend": mesh.backend()}
     if cfg.EVAL_MODE:
-        result["prec"] = run_epoch_eval(eval_fn, state, val_loader, 0, logger,
-                                        writer, iou_key, device)
-        result.update(best_prec=best_prec, best_epoch=best_epoch)
+        val = run_epoch_eval(eval_fn, eval_fn_tail, state, val_loader, 0, logger,
+                             writer, device)
+        result.update(prec=val.get(iou_key, 0.0), best_prec=best_prec,
+                      best_epoch=best_epoch)
         return result
 
     # the final F32_FINETUNE_EPOCHS epochs of a half-precision run compute
@@ -319,11 +369,12 @@ def main(argv=None):
             model.set_precision(torch.float32)
         else:
             model.set_precision(compute_dtype, trunk_dtype)
-        _, stats = run_epoch_train(step, state, init_accum(accum_keys, device),
-                                   train_loader, epoch, logger, writer,
-                                   cfg.disp, metric_interval=metric_interval)
-        prec = run_epoch_eval(eval_fn, state, val_loader, epoch, logger,
-                              writer, iou_key, device)
+        train_avg, stats = run_epoch_train(step, state, init_accum(accum_keys, device),
+                                           train_loader, epoch, logger, writer,
+                                           cfg.disp, metric_interval=metric_interval)
+        val = run_epoch_eval(eval_fn, eval_fn_tail, state, val_loader, epoch,
+                             logger, writer, device)
+        prec = val.get(iou_key, 0.0)
         is_best = prec > best_prec
         if is_best:
             best_prec, best_epoch = prec, epoch + 1
@@ -331,10 +382,12 @@ def main(argv=None):
                     f"({stats['ms_per_step']:.2f} ms/step, "
                     f"{stats['frustums_per_s']:.1f} frustums/s training) "
                     f"{iou_key}={prec:.4f} best={best_prec:.4f}@{best_epoch}")
-        ckpt.maybe_save_epoch(output_dir, state, epoch, cfg.TRAIN.MAX_EPOCH,
-                              best_prec, best_epoch, is_best)
+        if chief:
+            ckpt.maybe_save_epoch(output_dir, state, epoch, cfg.TRAIN.MAX_EPOCH,
+                                  best_prec, best_epoch, is_best)
         result["epochs"].append({"epoch": epoch, "prec": prec,
-                                 "dtype": str(model.dtype).split(".")[-1], **stats})
+                                 "dtype": str(model.dtype).split(".")[-1],
+                                 "train": train_avg, "val": val, **stats})
     logger.info(f"training done; best {iou_key}={best_prec:.4f} at epoch {best_epoch}")
     result.update(best_prec=best_prec, best_epoch=best_epoch)
     return result

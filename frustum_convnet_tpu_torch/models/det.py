@@ -5,6 +5,12 @@ Counterpart of ``frustum_convnet_tpu/models/det.py``: ``decode_outputs``
 ``LOSS_KEYS`` and ``metric_keys``. Every per-row loss is computed densely and
 reduced with foreground masks, as in the JAX package. The metrics carry no
 gradient: they are computed from detached tensors.
+
+Under data parallelism ``compute_losses`` takes ``psum``, the sum over the
+ranks (``parallel.mesh.global_sum``): every normaliser is then
+``clamp(psum(local count), 1)``, the global batch's, and each loss and
+metric a rank returns is its share; their sum over the ranks is the value
+JAX computes on the global batch (``parallel.train_step`` reduces them).
 """
 
 from __future__ import annotations
@@ -72,11 +78,14 @@ def compute_losses(
     loss_weights: Dict[str, float],
     iou_thresh: float = 0.7,
     compute_metrics: bool = True,
+    psum=None,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Training losses + monitoring metrics.
 
     labels: cls_label (B, L) in {-1, 0, 1}; box3d_center (B, 3);
-    box3d_heading (B,); box3d_size (B, 3); size_class (B,).
+    box3d_heading (B,); box3d_size (B, 3); size_class (B,). ``psum`` (None:
+    this batch alone) sums the normalisers' counts over the ranks before
+    the clamp.
     """
     mean_sizes = _mean_sizes(spec, reg)
     b, num_out = cls_logits.shape[0], cls_logits.shape[1]
@@ -84,11 +93,11 @@ def compute_losses(
 
     cls_label = labels["cls_label"].reshape(r)
     fg = cls_label == 1
-    num_fg = torch.clamp(fg.sum().to(reg.dtype), min=1.0)
+    num_fg = torch.clamp((psum or L.identity)(fg.sum().to(reg.dtype)), min=1.0)
 
     # classification: focal with ignore (-1), normalized by #fg
     cls_probs = torch.softmax(cls_logits.reshape(r, -1), dim=-1)
-    cls_loss = L.softmax_focal_loss_masked(cls_probs, cls_label)
+    cls_loss = L.softmax_focal_loss_masked(cls_probs, cls_label, psum=psum)
 
     # per-frustum box labels broadcast to every section row
     center_label = labels["box3d_center"][:, None, :].expand(b, num_out, 3).reshape(r, 3)
@@ -165,19 +174,22 @@ def compute_losses(
                 h_scores.detach(), h_res.detach(), heading_bin_label,
                 s_scores.detach(), s_res.detach(), size_cls_label,
                 center_preds.detach(), corners_gt.detach(), mean_sizes,
-                iou_thresh)
+                iou_thresh, psum)
     return loss_dict, metrics
 
 
 def _compute_metrics(spec, cls_probs, cls_label, fg, num_fg,
                      h_scores, h_res, heading_bin_label,
                      s_scores, s_res, size_cls_label,
-                     center_preds, corners_gt, mean_sizes, iou_thresh):
-    """Monitoring metrics (ref `det_base.py:478-503`), on the device."""
+                     center_preds, corners_gt, mean_sizes, iou_thresh, psum=None):
+    """Monitoring metrics (ref `det_base.py:478-503`), on the device; the
+    classification accuracy's count of labeled sections is summed by
+    ``psum`` like ``num_fg``."""
     f32 = torch.float32
     keep = cls_label != -1
     cls_pred = torch.argmax(cls_probs, dim=-1)
-    cls_acc = L.masked_mean((cls_pred == cls_label.clamp(min=0)).to(f32), keep)
+    cls_acc = L.masked_mean((cls_pred == cls_label.clamp(min=0)).to(f32), keep,
+                            psum=psum)
     head_acc = L.masked_mean(
         (torch.argmax(h_scores, -1) == heading_bin_label).to(f32), fg, num_fg)
     size_acc = L.masked_mean(

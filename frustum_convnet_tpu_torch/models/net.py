@@ -40,6 +40,17 @@ Train-mode variants (``cfg.TPU``): ghost BatchNorm over groups of the batch
 (``BN_GROUP_SIZE``, every BatchNorm), analytic statistics from the layer
 input (``FAST_BN``, ``FAST_BN_FIRST``, PointNet Denses only, not under
 ghost BatchNorm) and rematerialized PointNet scales (``REMAT_POINTNET``).
+
+Data parallelism: under a process group (``parallel.mesh``) every
+train-mode BatchNorm statistic is the global batch's, as JAX computes it
+under the mesh. Each rank takes its local mean and mean of squares (for
+``FAST_BN``, the input's mean and second moment), and the ranks average
+them with ``mesh.global_sum``, which carries the gradient back to every
+rank's rows; the shards are equal, so the mean of the ranks' means is the
+global mean. The variance is then ``clamp(mean2 - mean^2, 0)``, JAX's own
+formula, and the running variance's Bessel count is the global one. Ghost
+BatchNorm keeps its groups within a rank and averages the running
+statistics over every rank's groups. Eval mode runs no collective.
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from frustum_convnet_tpu_torch.models.spec import DetModelSpec
+from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.ops.select_cuda import (group_depth_point_auto,
                                                        group_depth_point_multi_auto)
 
@@ -133,12 +145,26 @@ def _bn(y: torch.Tensor, bn: nn.BatchNorm1d | nn.BatchNorm2d, dim: int,
     shape[dim] = -1
     if bn.training:
         axes = [d for d in range(y.dim()) if d != dim % y.dim()]
-        var, mean = torch.var_mean(yt, dim=axes, correction=0)
+        n = y.numel() // y.shape[dim]
+        if mesh.initialized():
+            mean, mean2 = _global_mean([yt.mean(dim=axes), (yt * yt).mean(dim=axes)])
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            n *= mesh.process_count()
+        else:
+            var, mean = torch.var_mean(yt, dim=axes, correction=0)
         if update:
-            _update_running(bn, mean, var, y.numel() // y.shape[dim])
+            _update_running(bn, mean, var, n)
     else:
         mean, var = (s.to(yt.dtype) for s in (bn.running_mean, bn.running_var))
     return _normalize(yt, bn, mean, var, shape).to(y.dtype)
+
+
+def _global_mean(parts):
+    """The mean over the ranks of each local statistic in ``parts``, in one
+    gradient-carrying all-reduce (equal shards: the global batch's mean)."""
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    total = mesh.global_sum(flat) / mesh.process_count()
+    return [t.view_as(p) for t, p in zip(total.split([p.numel() for p in parts]), parts)]
 
 
 def _ghost_bn(y: torch.Tensor, bn, dim: int, group: int,
@@ -148,10 +174,13 @@ def _ghost_bn(y: torch.Tensor, bn, dim: int, group: int,
     with its own biased ``mean2 - mean^2`` statistics; the running
     statistics take the mean of the groups' over ``n_group`` values a group.
     The reference's multi-GPU DataParallel semantics, with ``group`` the
-    per-GPU batch."""
+    per-GPU batch. Under a process group the groups lie within each rank's
+    batch, and the running statistics average every rank's groups."""
     b = y.shape[0]
     if b % group:
-        raise ValueError(f"batch {b} not divisible by BN group {group}")
+        where = (f" (the local batch of one of {mesh.process_count()} ranks)"
+                 if mesh.initialized() else "")
+        raise ValueError(f"batch {b}{where} not divisible by BN group {group}")
     g = b // group
     yg = y.to(torch.promote_types(torch.float32, y.dtype)).reshape(
         (g, group) + tuple(y.shape[1:]))
@@ -160,7 +189,13 @@ def _ghost_bn(y: torch.Tensor, bn, dim: int, group: int,
     mean = yg.mean(dim=axes)  # (g, C)
     var = torch.clamp((yg * yg).mean(dim=axes) - mean * mean, min=0.0)
     if update:
-        _update_running(bn, mean.mean(0), var.mean(0), y.numel() // (y.shape[dim] * g))
+        n_group = y.numel() // (y.shape[dim] * g)
+        if mesh.initialized():
+            with torch.no_grad():
+                sums = mesh.all_reduce(torch.stack([mean.sum(0), var.sum(0)]))
+            _update_running(bn, *(sums / (g * mesh.process_count())), n_group)
+        else:
+            _update_running(bn, mean.mean(0), var.mean(0), n_group)
     shape = [g] + [1] * (yg.dim() - 1)
     shape[cdim] = -1
     inv = torch.reciprocal(torch.sqrt(var + bn.eps)) * bn.weight
@@ -192,7 +227,8 @@ class DenseBNReLU(nn.Sequential):
     come from the layer input (``DenseBNReLU``, ``net.py:320-352``): with
     W^T the (I, O) kernel, mean = mu_x W^T and var = sum((cov W^T) * W^T,
     axis 0), cov the centred (I, I) input covariance, in
-    ``promote(float32, x.dtype)``; the running statistics count the rows."""
+    ``promote(float32, x.dtype)``; the running statistics count the rows
+    (under a process group, the global batch's moments and rows)."""
 
     def __init__(self, cin: int, cout: int, fast_stats: bool = False,
                  bn_group: int = 0):
@@ -211,8 +247,12 @@ class DenseBNReLU(nn.Sequential):
         xf = x.to(stat).reshape(-1, x.shape[-1])
         rows = xf.shape[0]
         mu = xf.mean(dim=0)
+        m2 = (xf.T @ xf) / rows
+        if mesh.initialized():  # the global batch's moments and row count
+            mu, m2 = _global_mean([mu, m2])
+            rows *= mesh.process_count()
         mean = mu @ wt
-        cov = (xf.T @ xf) / rows - torch.outer(mu, mu)
+        cov = m2 - torch.outer(mu, mu)
         var = ((cov @ wt) * wt).sum(dim=0)
         if update:
             _update_running(bn, mean, var, rows)

@@ -17,8 +17,15 @@ fields and defaults):
   optimizer's ``state_dict`` carries it as optax's state carries
   ``ScaleByScheduleState.count``, and :func:`reset_schedule_count` can restart
   the schedule while Adam's moments and step counts stay;
-* BatchNorm batch statistics are the model's (``module.train()``); the batch
-  is on one device. The mesh and its batch sharding are not ported yet;
+* BatchNorm batch statistics are the model's (``module.train()``);
+* data parallelism (``parallel.mesh``): under a process group each rank
+  steps on its shard of the global batch. The BatchNorm statistics and
+  every loss normaliser are the global batch's (``compute_losses(psum=
+  mesh.global_sum)``), so each rank's loss is its share of the global one;
+  after the backward the gradients are summed over the ranks, the JAX
+  ``psum``, and the returned losses and metrics are the sums of the
+  shares, the global values. With no group every step is the
+  single-device step, bit for bit;
 * the steps compute in the model's dtypes (``FrustumConvNet.set_precision``)
   while the batch stays float32 and the losses take the heads' outputs,
   which are at least float32, as the JAX steps do with the model's
@@ -32,6 +39,7 @@ box3d_center (B, 3), box3d_heading (B,), box3d_size (B, 3), size_class (B,).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Sequence
 
@@ -40,6 +48,7 @@ import torch
 
 from frustum_convnet_tpu_torch.models.spec import DetModelSpec
 from frustum_convnet_tpu_torch.models.det import compute_losses
+from frustum_convnet_tpu_torch.parallel import mesh
 
 BATCH_KEYS = ("point_cloud", "one_hot", "refs", "cls_label", "box3d_center",
               "box3d_heading", "box3d_size", "size_class")
@@ -146,25 +155,44 @@ def to_device(batch_np: dict, device, dtype=torch.float32) -> dict:
 
 
 def _losses(model, spec: DetModelSpec, cfg: TrainStepConfig, batch,
-            compute_metrics: bool):
+            compute_metrics: bool, psum=None):
     refs = list(batch["refs"])
     cls_logits, reg = model(batch["point_cloud"], batch["one_hot"], refs)
     labels = {k: batch[k] for k in LABEL_KEYS}
     return compute_losses(spec, cls_logits, reg, refs[1], labels,
                           cfg.loss_weights, cfg.iou_thresh,
-                          compute_metrics=compute_metrics)
+                          compute_metrics=compute_metrics, psum=psum)
+
+
+def _psum():
+    """The sum over the ranks under a process group, else None (local)."""
+    return mesh.global_sum if mesh.initialized() else None
+
+
+def _totals(losses: dict, metrics: dict, psum) -> tuple:
+    """(losses, metrics) detached and, with ``psum``, summed over the ranks
+    in one all-reduce: the ranks' shares become the global values."""
+    vals = {k: v.detach() for k, v in {**losses, **metrics}.items()}
+    if psum is not None and vals:
+        dtype = functools.reduce(torch.promote_types, (v.dtype for v in vals.values()))
+        total = psum(torch.stack([v.to(dtype) for v in vals.values()]))
+        vals = {k: t.to(v.dtype) for (k, v), t in zip(vals.items(), total)}
+    return ({k: vals[k] for k in losses}, {k: vals[k] for k in metrics})
 
 
 def loss_and_grads(model, spec: DetModelSpec, cfg: TrainStepConfig, batch):
     """Train-mode forward and losses, then the backward of the total loss:
-    each parameter's ``.grad`` holds its gradient and the BatchNorm running
-    statistics have taken one update. Returns (losses, metrics), detached."""
+    each parameter's ``.grad`` holds its gradient (summed over the ranks
+    under a process group) and the BatchNorm running statistics have taken
+    one update. Returns (losses, metrics), detached: the global values."""
     model.train()
     for p in model.parameters():
         p.grad = None
-    losses, metrics = _losses(model, spec, cfg, batch, cfg.compute_metrics)
+    psum = _psum()
+    losses, metrics = _losses(model, spec, cfg, batch, cfg.compute_metrics, psum)
     losses["total_loss"].backward()
-    return ({k: v.detach() for k, v in losses.items()}, metrics)
+    mesh.all_reduce_grads(model.parameters())
+    return _totals(losses, metrics, psum)
 
 
 def apply_update(state: TrainState) -> None:
@@ -214,15 +242,21 @@ def init_accum(keys, device) -> dict:
     return {k: torch.zeros((), dtype=torch.float32, device=device) for k in keys}
 
 
-def build_eval_step(spec: DetModelSpec, cfg: TrainStepConfig):
+def build_eval_step(spec: DetModelSpec, cfg: TrainStepConfig, local: bool = False):
     """Validation step: forward with the running BatchNorm statistics, then
     losses and metrics, no gradients. ``step(state, batch) -> (losses,
-    metrics)``."""
+    metrics)``: under a process group, the global values over the ranks'
+    shards of a batch. ``local`` runs no collective: the loader's short
+    global tail, which every rank evaluates whole (JAX ``engine/train.py``
+    runs it unsharded)."""
 
     def step(state: TrainState, batch):
         state.model.eval()
+        psum = None if local else _psum()
         with torch.no_grad():
-            return _losses(state.model, spec, cfg, batch, compute_metrics=True)
+            losses, metrics = _losses(state.model, spec, cfg, batch,
+                                      compute_metrics=True, psum=psum)
+        return _totals(losses, metrics, psum)
 
     return step
 

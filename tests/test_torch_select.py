@@ -482,9 +482,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_port_imports_nothing_of_the_jax_package(tmp_path):
     """In a fresh interpreter, after every module of the port is imported and
-    the training and serving entry points, the KITTI and SUN-RGBD prep CLIs,
-    the SUN-RGBD driver and the protocol runners' dataset step have run on
-    the CPU at a tiny size, no module of
+    the training and serving entry points (training also as the one rank of
+    a gloo process group, through ``parallel.mesh``), the KITTI and SUN-RGBD
+    prep CLIs, the SUN-RGBD driver and the protocol runners' dataset step
+    have run on the CPU at a tiny size, no module of
     the JAX package (``frustum_convnet_tpu``), nor jax, flax or optax, is
     loaded."""
     code = f"""
@@ -523,6 +524,23 @@ res = serve.main(["--cfg", cfg_file, "--device", "cpu", "--gt_dir",
     "TPU.INFER_GROUP", "1",
     "TEST.WEIGHTS", checkpoints.checkpoint_paths(work + "/out")["final"]])
 assert res["stats"]["frustums"] == 4 and res["ap"] is not None, res
+
+# one child rank: the trainer as rank 0 of a world-1 gloo group
+import os, socket
+from frustum_convnet_tpu_torch.parallel import mesh
+with socket.socket() as sock:
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+os.environ.update(FRUSTUM_COORDINATOR=f"localhost:{{port}}", FRUSTUM_NUM_PROCESSES="1",
+                  FRUSTUM_PROCESS_ID="0")
+calls = mesh.all_reduce.calls
+ranked = trainer.main(["--cfg", cfg_file, "--device", "cpu"] + tiny + [
+    "DATA.DATA_ROOT", work + "/train", "OUTPUT_DIR", work + "/out_rank",
+    "TRAIN.MAX_EPOCH", "1"])
+assert (ranked["backend"], ranked["world"]) == ("gloo", 1), ranked
+assert mesh.all_reduce.calls > calls and not mesh.initialized()
+for key in ("FRUSTUM_COORDINATOR", "FRUSTUM_NUM_PROCESSES", "FRUSTUM_PROCESS_ID"):
+    del os.environ[key]
 
 # the prep CLIs and the SUN-RGBD driver
 from frustum_convnet_tpu_torch.data.kitti import prepare, prepare_refine
