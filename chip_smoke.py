@@ -128,7 +128,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     batch outside a group takes the full path, whose host-built ladders lie
     a rounding from the grouped path's); and
     NCCL refusing two ranks on the card on both ranks. Prints both ranks'
-    ms/step and serving rates beside the card's name and power limit.
+    ms/step and serving rates beside the card's name and power limit;
+17. entry points (alone with ``--entry-points``, after phases 1 and 2):
+    (a) ``graft_entry.entry()`` on the card against ``entry(device="cpu")``
+    with the same seeded weights, every decoded output within atol/rtol
+    1e-4 (TF32 off), one kernel-1 launch; (b)
+    ``graft_entry.dryrun_multichip(2)``: 2 gloo ranks sharing the card (child
+    processes), each level's train step audited (only all-reduces, the
+    flat gradient buffer the one over twice the largest parameter), finite
+    losses and inference, weak scaling within JAX's bound, kernel 1 on every
+    forward of every rank; (c) ``ops/nms_device.rotate_nms_3d_device`` on
+    the card: the host NMS's keep lists (``core/nms`` and the native
+    ``ops/native``) on the seeded sets of
+    ``tests/test_box_overlaps_nms_jax.py`` (n=24, max_out 16) and at n=256,
+    max_out 64, no host sync in the greedy loop, and at n=256 its time by
+    CUDA events beside the host NMS's; (d) ``tools.profile_train.main`` at
+    batch 32 in float32 and bfloat16 (its rows, device-busy ms, kernels and
+    peak memory a step), finite rows and kernel 1 on every timed call; (e)
+    ``tools.profile_mlp.main`` at batch 256, its rows.
 
 The splits of phases 4-9 are written here from seeded numpy, with one car
 generator: the val split in the reference's 7-stream rgb-detection pickle
@@ -148,9 +165,10 @@ cascade's stage-1 serving, training and serving (phase 10), and SUN-RGBD
 training and serving (phase 11), bfloat16 training, float16 training with
 the float32 fine-tune and bfloat16 serving (phase 13), the people cascade's
 stage-1 and refine training and serving (phase 14), each protocol
-runner (phase 15), and world-1 training and both world-1 servings and the
-2-rank training (8 steps) and serving, both ranks' launches (phase 16);
-only kernel 1 runs there.
+runner (phase 15), world-1 training and both world-1 servings and the
+2-rank training (8 steps) and serving, both ranks' launches (phase 16),
+and ``entry()``, every rank of the dry-run and both ``profile_train``
+runs (phase 17); only kernel 1 runs there.
 ``main_path_launches`` is their sum. Kernel 1's ``family_shapes`` holds its
 phase-12 numbers. Launches that compare a kernel with its plain version are
 not counted. ``bound_ms`` is
@@ -1931,6 +1949,165 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
 
 
 
+NMS_CASES = ((24, 16), (256, 64))  # (boxes, max_out): the JAX test's set and a wide one
+NMS_THRESH = 0.3
+
+
+def nms_boxes(rng, n: int):
+    """``tests/test_box_overlaps_nms_jax.py:58-62``'s generator: centers,
+    sizes (lwh), headings and scores, float32."""
+    centers = np.column_stack([rng.uniform(-6, 6, n), rng.uniform(-1, 1, n),
+                               rng.uniform(-6, 6, n)]).astype(np.float32)
+    sizes = rng.uniform(1, 4, (n, 3)).astype(np.float32)
+    headings = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    return centers, sizes, headings, scores
+
+
+def _host_ms(fn, reps: int) -> float:
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def phase_device_nms(device) -> dict:
+    """Phase 17 (c): ``ops/nms_device.rotate_nms_3d_device`` on the card
+    against the port's host NMS (``core/nms.rotate_nms_3d`` in float64 and
+    the native ``ops/native.rotate_nms_3d`` the drivers run): equal keep
+    lists on the seeded sets of ``NMS_CASES``; the greedy loop issues no
+    host sync (``torch.cuda.set_sync_debug_mode("error")``); timed at
+    n=256 with CUDA events beside the host NMS's time."""
+    from frustum_convnet_tpu_torch.core import nms as host_nms
+    from frustum_convnet_tpu_torch.core.geometry import box3d_corners
+    from frustum_convnet_tpu_torch.core.iou import iou_matrix_3d
+    from frustum_convnet_tpu_torch.ops import native, nms_device
+    from frustum_convnet_tpu_torch.tools.time_grouping import cuda_time_ms
+
+    if not native.native_available():
+        raise AssertionError("[entry points] the native NMS did not build")
+    rng = np.random.default_rng(3)
+    out = {}
+    for n, max_out in NMS_CASES:
+        boxes = nms_boxes(rng, n)
+        c, s, h, sc = (torch.from_numpy(a).to(device) for a in boxes)
+        valid = torch.ones(n, dtype=torch.bool, device=device)
+        iou = iou_matrix_3d(box3d_corners(c, h, s), box3d_corners(c, h, s))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            keep_loop, _ = nms_device.greedy_nms_from_iou(iou, sc, valid, NMS_THRESH, max_out)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        keep, cnt = nms_device.rotate_nms_3d_device(c, s, h, sc, valid, NMS_THRESH, max_out)
+        keep, cnt = keep.cpu(), int(cnt)
+        dets = np.column_stack(boxes).astype(np.float64)
+        want = host_nms.rotate_nms_3d(dets, NMS_THRESH, top_k=max_out)
+        want_native = native.rotate_nms_3d(dets, NMS_THRESH, top_k=max_out)
+        if (keep[:cnt].tolist() != want or want_native != want
+                or not torch.equal(keep_loop.cpu(), keep) or (keep[cnt:] != -1).any()):
+            raise AssertionError(f"[entry points] device NMS n={n}: {keep.tolist()} ({cnt}), "
+                                 f"host {want}, native {want_native}")
+        rec = {"kept": cnt}
+        if n == 256:
+            rec["device_ms"] = cuda_time_ms(lambda: nms_device.rotate_nms_3d_device(
+                c, s, h, sc, valid, NMS_THRESH, max_out), 20)
+            rec["native_ms"] = _host_ms(lambda: native.rotate_nms_3d(dets, NMS_THRESH, max_out), 5)
+            rec["numpy_ms"] = _host_ms(lambda: host_nms.rotate_nms_3d(dets, NMS_THRESH, max_out), 1)
+        out[n] = rec
+        print(f"[entry points] device NMS n={n} max_out={max_out}: {cnt} kept, the host's "
+              f"keep list (core/nms and ops/native), no host sync in the greedy loop"
+              + (f"; {rec['device_ms']:.3f} ms on the card (CUDA events, 20 calls), "
+                 f"native host {rec['native_ms']:.3f} ms, numpy host {rec['numpy_ms']:.3f} ms"
+                 if n == 256 else ""))
+    return out
+
+
+def phase_entry_points(device, card: str) -> dict:
+    """Phase 17: the port's entry points that no driver runs. (a)
+    ``graft_entry.entry()`` on the card against ``entry(device="cpu")``
+    with the same seeded weights, every decoded output within atol/rtol
+    1e-4, one kernel-1 launch; (b) ``graft_entry.dryrun_multichip(2)``: 2
+    gloo ranks sharing the card, the audit of each level's step, kernel 1
+    on every forward; (c) the device NMS (``phase_device_nms``); (d)
+    ``tools.profile_train`` at batch 32 in float32 and bfloat16, finite
+    rows and kernel 1 on every timed call; (e) ``tools.profile_mlp`` at
+    batch 256. Returns kernel 1's launches on the entry, dry-run and
+    profiler paths."""
+    from frustum_convnet_tpu_torch import graft_entry
+    from frustum_convnet_tpu_torch.tools import profile_mlp, profile_train
+
+    paths = {}
+    fn, args = graft_entry.entry()
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    _reset_counts()
+    got = fn(*args)
+    paths["entry"] = _counts()["group_depth_point_multi"]
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"[entry points] entry() {k}: {tuple(g.shape)} or non-finite")
+        torch.testing.assert_close(g, w, **MODEL_TOL)
+        worst = max(worst, (g - w).abs().max().item())
+    if paths["entry"] != 1:
+        raise AssertionError(f"[entry points] entry() launched kernel 1 {paths['entry']} times")
+    print(f"[entry points] entry() on the card against the CPU: {len(want)} outputs, max abs "
+          f"{worst:.3e} (atol/rtol 1e-4), 1 kernel-1 launch")
+
+    dry = graft_entry.dryrun_multichip(2)
+    paths["dryrun_multichip"] = dry["launches"]
+    if dry["backend"] != "gloo" or dry["launches"] != dry["forwards"]:
+        raise AssertionError(f"[entry points] dry-run over {dry['backend']}: "
+                             f"{dry['launches']} kernel-1 launches for {dry['forwards']} forwards")
+    print(f"[entry points] dryrun_multichip(2) on {card}: 2 gloo ranks sharing the card, "
+          f"audit {dry['audits']}, {dry['launches']} kernel-1 launches for "
+          f"{dry['forwards']} forwards")
+
+    nms = phase_device_nms(device)
+
+    paths["profile_train"] = 0
+    train_rows = {}
+    for dtype in ("float32", "bfloat16"):
+        _reset_counts()
+        res = profile_train.main(["--batch", "32", "--dtype", dtype])
+        launches = _counts()["group_depth_point_multi"]
+        paths["profile_train"] += launches
+        if launches < res["forwards"] or not all(np.isfinite(v) for v in res["rows"].values()):
+            raise AssertionError(f"[entry points] profile_train {dtype}: {launches} kernel-1 "
+                                 f"launches for {res['forwards']} calls, rows {res['rows']}")
+        train_rows[dtype] = res
+        print(f"[entry points] profile_train --dtype {dtype} on {card}: {launches} kernel-1 "
+              f"launches for {res['forwards']} timed calls")
+    mlp = profile_mlp.main(["--batch", "256"])
+    print(f"[entry points] profile_mlp --batch 256 on {card}: TOTAL float32 "
+          f"{mlp['float32']['TOTAL'] * 1e3:.3f} ms, bfloat16 {mlp['bfloat16']['TOTAL'] * 1e3:.3f} ms")
+    return {"paths": paths, "nms": nms, "profile_train": train_rows, "profile_mlp": mlp}
+
+
+def entry_points_main() -> int:
+    """``chip_smoke.py --entry-points``: phases 1, 2 and 17 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from frustum_convnet_tpu_torch.engine import test as driver
+    from frustum_convnet_tpu_torch.ops import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"[device] {card}")
+    driver.strict_fp32()
+    _build.load_library("group_depth_point")
+    phase_entry_points(torch.device("cuda", 0), card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2012,6 +2189,9 @@ def main() -> int:
         # 16. the data-parallel layer: world 1 over NCCL, 2 ranks over gloo
         data_parallel = phase_data_parallel(spec, work, train_dir, model, split, served,
                                             train, card)
+        # 17. the entry points no driver runs: entry(), the dry-run, the device
+        # NMS and both profilers
+        entry_points = phase_entry_points(device, card)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
@@ -2022,7 +2202,8 @@ def main() -> int:
     paths = {"serving": serve_counts, "training": train["counts"]}
     paths.update({k: {"group_depth_point_multi": v}
                   for k, v in {**refine, **sunrgbd, **precision, **people,
-                               **runners, **data_parallel}.items()})
+                               **runners, **data_parallel,
+                               **entry_points["paths"]}.items()})
     records = []
     for name, launches, numbers in (
             ("group_depth_point_multi", train["counts"]["group_depth_point_multi"],
@@ -2051,4 +2232,6 @@ if __name__ == "__main__":
         sys.exit(rank_main(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-gradients"]:
         sys.exit(dp_gradients_main())
+    if sys.argv[1:2] == ["--entry-points"]:
+        sys.exit(entry_points_main())
     sys.exit(main())

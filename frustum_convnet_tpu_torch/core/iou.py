@@ -1,9 +1,9 @@
-"""Paired rotated-box IoU (BEV and 3D) in PyTorch, for the training metric.
+"""Rotated-box IoU (BEV and 3D) in PyTorch: paired, for the training
+metric, and as (N, K) matrices, for the device NMS.
 
-Counterpart of ``iou_pair_3d`` and its helpers in
-``frustum_convnet_tpu/core/iou.py``: the same fixed-shape candidate-vertex
-formulation, with JAX's ``vmap`` over box pairs written out as a leading
-batch dimension N:
+Counterpart of ``frustum_convnet_tpu/core/iou.py``: the same fixed-shape
+candidate-vertex formulation, with JAX's ``vmap`` over box pairs written out
+as a leading batch dimension N:
 
 1. candidates = {vertices of A inside B} + {vertices of B inside A} +
    {all 16 edge-edge intersection points}, each with a validity mask;
@@ -11,8 +11,8 @@ batch dimension N:
    ``jnp.argsort`` is);
 3. shoelace over the ordered ring -> intersection area.
 
-``iou_matrix_bev``/``iou_matrix_3d`` serve only the device NMS, which the
-port does not have, and are not ported.
+``iou_matrix_bev`` and ``iou_matrix_3d`` put the N x K pairs of two box
+sets into that leading dimension (``ops/nms_device.py`` takes the 3D one).
 """
 
 from __future__ import annotations
@@ -119,3 +119,26 @@ def iou_pair_3d(corners1: torch.Tensor, corners2: torch.Tensor):
     union3d = a1 * (ymax1 - ymin1) + a2 * (ymax2 - ymin2) - inter3d
     iou3d = torch.where(union3d > 0, inter3d / union3d.clamp(min=_EPS), zero)
     return iou_bev, iou3d
+
+
+def _pairs(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """Every (i, j) pair of (N, ...) and (K, ...) as two (N*K, ...) tensors,
+    row-major in (i, j)."""
+    n, k = a.shape[0], b.shape[0]
+    return (a[:, None].expand(n, k, *a.shape[1:]).reshape(n * k, *a.shape[1:]),
+            b[None].expand(n, k, *b.shape[1:]).reshape(n * k, *b.shape[1:]))
+
+
+def iou_matrix_bev(polys1: torch.Tensor, polys2: torch.Tensor) -> torch.Tensor:
+    """Full BEV IoU matrix between (N, 4, 2) and (K, 4, 2) polygons -> (N, K)."""
+    p1, p2 = _pairs(polys1, polys2)
+    inter = quad_intersection_area(p1, p2)
+    union = _quad_area(_ensure_ccw(p1)) + _quad_area(_ensure_ccw(p2)) - inter
+    iou = torch.where(union > 0, inter / union.clamp(min=_EPS), torch.zeros_like(inter))
+    return iou.reshape(polys1.shape[0], polys2.shape[0])
+
+
+def iou_matrix_3d(corners1: torch.Tensor, corners2: torch.Tensor) -> torch.Tensor:
+    """Full 3D IoU matrix between (N, 8, 3) and (K, 8, 3) boxes -> (N, K)."""
+    _, iou3d = iou_pair_3d(*_pairs(corners1, corners2))
+    return iou3d.reshape(corners1.shape[0], corners2.shape[0])

@@ -18,7 +18,11 @@ idiom is one process per device, and here the collectives are explicit:
   equal on every rank, so Adam keeps the parameters bitwise equal;
 * serving shards the dataset by whole batches (``BatchLoader(batch_shard=
   (rank, world))``) and merges the detection dicts once at the end
-  (:func:`allgather_detections`).
+  (:func:`allgather_detections`);
+* :func:`audit` records every collective the process issues while it is
+  open, its kind and bytes: the counterpart of the HLO audit of
+  ``__graft_entry__._audit_collectives``, read by
+  ``graft_entry.dryrun_multichip``.
 
 Launching N ranks, one per card, each with ``--device cuda``:
 ``FRUSTUM_COORDINATOR=host:port FRUSTUM_NUM_PROCESSES=N
@@ -32,7 +36,9 @@ gloo on the CPU. Files are written by rank 0 only (:func:`is_chief`).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
+import pickle
 import socket
 from typing import Iterable, Mapping, Optional, Sequence
 
@@ -263,3 +269,65 @@ def allgather_detections(det_results: dict) -> dict:
             for cls, rows in per_class.items():
                 merged.setdefault(idx, {}).setdefault(cls, []).extend(rows)
     return merged
+
+
+# the torch.distributed calls :func:`audit` records: the kind it files each
+# under, and the position and name of the argument that holds what a rank sends
+_AUDITED = {"all_reduce": ("all-reduce", 0, "tensor"),
+            "all_gather": ("all-gather", 1, "tensor"),
+            "all_gather_into_tensor": ("all-gather", 1, "input_tensor"),
+            "all_gather_object": ("all-gather", 1, "obj"),
+            "broadcast": ("broadcast", 0, "tensor"),
+            "broadcast_object_list": ("broadcast", 0, "object_list"),
+            "reduce_scatter": ("reduce-scatter", 1, "input_list"),
+            "reduce_scatter_tensor": ("reduce-scatter", 1, "input"),
+            "all_to_all": ("all-to-all", 1, "input_tensor_list"),
+            "all_to_all_single": ("all-to-all", 1, "input")}
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One collective a rank issued: its kind ("all-reduce", "all-gather",
+    "broadcast", ...), the bytes this rank sent, and the tensor's dtype and
+    shape (the first tensor's for a list; None for Python objects, whose
+    bytes are their pickle's)."""
+    kind: str
+    nbytes: int
+    dtype: Optional[torch.dtype] = None
+    shape: Optional[tuple] = None
+
+
+def _collective(name: str, args: tuple, kwargs: dict) -> Collective:
+    kind, pos, key = _AUDITED[name]
+    sent = args[pos] if len(args) > pos else kwargs.get(key)
+    tensors = [sent] if isinstance(sent, torch.Tensor) else sent
+    if (isinstance(tensors, (list, tuple)) and tensors
+            and all(isinstance(t, torch.Tensor) for t in tensors)):
+        return Collective(kind, sum(t.numel() * t.element_size() for t in tensors),
+                          tensors[0].dtype, tuple(tensors[0].shape))
+    return Collective(kind, len(pickle.dumps(sent)))
+
+
+@contextlib.contextmanager
+def audit():
+    """Record every collective this process issues through
+    ``torch.distributed`` while the block runs; yields the list that
+    collects them (:class:`Collective`, in issue order). The port's own
+    collectives (:func:`all_reduce`, :func:`allgather_detections`) and any
+    that other code calls on ``torch.distributed`` are recorded alike."""
+    records: list = []
+    originals = {name: getattr(dist, name) for name in _AUDITED if hasattr(dist, name)}
+
+    def recording(name, fn):
+        def call(*args, **kwargs):
+            records.append(_collective(name, args, kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(dist, name, recording(name, fn))
+    try:
+        yield records
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)

@@ -13,11 +13,13 @@
   each writes ``protocol_result.json`` with the JAX tool's keys and finite
   APs, stage 1 serves ``model_best.pth`` and refine ``model_final.pth``, and
   nothing of jax or the JAX package is imported;
-* the port's twins of ``scripts/car_all.sh`` and ``scripts/people_all.sh``
-  name only modules of the port, each CLI's argparse accepts the flags it
-  is given, every cfg override names a key of the cfg, and the weights they
-  serve are ``.pth`` files (``model_best`` at stage 1, ``model_final`` at
-  the refine stage).
+* the port's twins of ``scripts/{car_all,people_all,car_train,
+  car_train_refine,eval_pretrained_models,sunrgbd_train}.sh`` name only
+  modules of the port, each CLI's argparse accepts the flags it is given
+  (``--device cuda`` by default), every cfg override names a key of the cfg,
+  and the weights they serve are ``.pth`` files (``model_best`` at stage 1,
+  ``model_final`` at the refine stage, the checkpoints given to
+  ``eval_pretrained_models.sh``).
 """
 
 import argparse
@@ -152,23 +154,40 @@ class _Parsed(Exception):
     pass
 
 
-@pytest.mark.parametrize("script", ["car_all.sh", "people_all.sh"])
+# script: (its arguments, the CLI calls it makes, the (cfg, weights) each
+# serving call loads)
+SCRIPTS = {
+    "car_all.sh": ((), 6, [("cfgs/det_sample.yaml", "model_best.pth"),
+                           ("cfgs/refine_car.yaml", "model_final.pth")]),
+    "people_all.sh": ((), 6, [("cfgs/det_sample_people.yaml", "model_best.pth"),
+                              ("cfgs/refine_people.yaml", "model_final.pth")]),
+    "car_train.sh": (("TRAIN.MAX_EPOCH", "2"), 1, []),
+    "car_train_refine.sh": ((), 1, []),
+    "eval_pretrained_models.sh": (("stage1.pth", "refine.pth"), 3,
+                                  [("cfgs/det_sample.yaml", "stage1.pth"),
+                                   ("cfgs/refine_car.yaml", "refine.pth")]),
+    "sunrgbd_train.sh": ((), 3, [("cfgs/det_sample_sunrgbd.yaml", "model_best.pth")] * 2),
+}
+
+
+@pytest.mark.parametrize("script", sorted(SCRIPTS))
 def test_port_scripts_call_port_clis_with_flags_they_accept(tmp_path, monkeypatch, script):
     """The script runs under bash with ``python`` recording its arguments;
     each recorded call's module is imported and its ``main`` parses them."""
     from frustum_convnet_tpu_torch import configs
 
+    args, n_calls, want_served = SCRIPTS[script]
     record = str(tmp_path / "calls")
     path = os.path.join(ROOT, "frustum_convnet_tpu_torch", "scripts", script)
     proc = subprocess.run(
         ["bash", "-c", 'python() { printf "%s\\0" "$@" >> "$REC"; printf "\\n" >> "$REC"; }; '
-                       'source "$SCRIPT"'],
+                       'source "$SCRIPT" "$@"', "bash", *args],
         env=dict(os.environ, REC=record, SCRIPT=path), capture_output=True, text=True,
         timeout=60, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     with open(record) as f:
         calls = [c.split("\0") for c in f.read().split("\0\n")[:-1]]
-    assert len(calls) == 6, calls  # prepare, train, test; prepare_refine, train, test
+    assert len(calls) == n_calls, calls
     parse = argparse.ArgumentParser.parse_args
 
     def parse_then_stop(self, args=None, namespace=None):
@@ -189,5 +208,4 @@ def test_port_scripts_call_port_clis_with_flags_they_accept(tmp_path, monkeypatc
             configs.merge_cfg_from_list(ns.opts, cfg)
             if cfg.TEST.WEIGHTS:
                 served.append((ns.cfg_file, os.path.basename(cfg.TEST.WEIGHTS)))
-    assert [w for _, w in served] == ["model_best.pth", "model_final.pth"]
-    assert "refine" in served[1][0] and "refine" not in served[0][0]
+    assert served == want_served

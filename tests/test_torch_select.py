@@ -484,8 +484,9 @@ def test_port_imports_nothing_of_the_jax_package(tmp_path):
     """In a fresh interpreter, after every module of the port is imported and
     the training and serving entry points (training also as the one rank of
     a gloo process group, through ``parallel.mesh``), the KITTI and SUN-RGBD
-    prep CLIs, the SUN-RGBD driver and the protocol runners' dataset step
-    have run on the CPU at a tiny size, no module of
+    prep CLIs, the SUN-RGBD driver, the protocol runners' dataset step,
+    ``graft_entry.entry``, the device NMS, both profilers, the viz tools and
+    ``jsonl_to_tb`` have run on the CPU at a tiny size, no module of
     the JAX package (``frustum_convnet_tpu``), nor jax, flax or optax, is
     loaded."""
     code = f"""
@@ -569,6 +570,23 @@ assert sun["stats"]["frustums"] >= 1 and sun["ap"] is not None, sun
 from frustum_convnet_tpu_torch.tools import run_refine_protocol, run_synth_protocol
 kitti_root, _ = run_synth_protocol.build_dataset(2, 1, work + "/proto", 1)
 assert run_refine_protocol.build_dataset is run_synth_protocol.build_dataset
+
+# the driver entry point, the device NMS, the profilers and the viz and log tools
+from frustum_convnet_tpu_torch import graft_entry
+from frustum_convnet_tpu_torch.ops.nms_device import rotate_nms_3d_device
+from frustum_convnet_tpu_torch.tools import (jsonl_to_tb, profile_mlp, profile_train,
+                                             viz_kitti, viz_sunrgbd)
+fn, example = graft_entry.entry(device="cpu")
+assert fn(*example)["cls_probs"].shape == (4, 140, 2)
+boxes = torch.rand(6, 7)
+keep, cnt = rotate_nms_3d_device(boxes[:, :3] * 4, boxes[:, 3:6] + 1, boxes[:, 6], torch.rand(6),
+                                 torch.ones(6, dtype=torch.bool), 0.3, 4)
+assert keep.shape == (4,) and 1 <= int(cnt) <= 4
+profile_train.main(["--device", "cpu", "--tiny", "--batch", "2"])
+profile_mlp.main(["--device", "cpu", "--tiny", "--batch", "1"])
+viz_kitti.main(["--data_root", work + "/kitti", "--idx", "0", "--save_dir", work + "/viz"])
+viz_sunrgbd.main(["--data_root", work + "/sun", "--idx", "1", "--save_dir", work + "/viz"])
+assert jsonl_to_tb.main([work + "/out"]) == 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
 assert not bad, bad

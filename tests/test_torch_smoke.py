@@ -54,6 +54,28 @@ def test_chip_smoke_fails_without_cuda():
     assert '"ok"' not in proc.stdout
 
 
+@pytest.mark.parametrize("mode", ["--entry-points", "--dp-gradients"])
+def test_chip_smoke_single_phase_modes_fail_without_cuda(mode):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py", mode], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "is_available() is false" in proc.stderr
+
+
+def test_smoke_nms_boxes_are_the_jax_tests_generator():
+    """Phase 17's device-NMS sets come from the generator of
+    ``tests/test_box_overlaps_nms_jax.py:58-62`` on its ``rng`` fixture's seed."""
+    rng = np.random.default_rng(3)
+    n = 24
+    want = (np.column_stack([rng.uniform(-6, 6, n), rng.uniform(-1, 1, n),
+                             rng.uniform(-6, 6, n)]).astype(np.float32),
+            rng.uniform(1, 4, (n, 3)).astype(np.float32),
+            rng.uniform(-np.pi, np.pi, n).astype(np.float32),
+            rng.uniform(0, 1, n).astype(np.float32))
+    for got, w in zip(chip_smoke.nms_boxes(np.random.default_rng(3), n), want):
+        np.testing.assert_array_equal(got, w)
+
+
 @pytest.fixture(scope="module")
 def smoke_split(tmp_path_factory):
     work = str(tmp_path_factory.mktemp("smoke_split"))

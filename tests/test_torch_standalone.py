@@ -430,6 +430,30 @@ def case_pr_plot(pkg, splits, out):
     return os.path.exists(path) and os.path.getsize(path) > 0
 
 
+def case_visualize(pkg, splits, out):
+    """Every figure of ``utils/visualize`` on a synthetic KITTI frame and a
+    seeded frustum, saved as PNG, and the heading segment it draws."""
+    pytest.importorskip("matplotlib")
+    viz = _mod(pkg, "utils.visualize")
+    import matplotlib.pyplot as plt
+
+    ds = _mod(pkg, "data.kitti.object").KittiObjectDataset(splits["kitti_raw"])
+    objs, calib = ds.get_label_objects(1), ds.get_calibration(1)
+    img, velo = ds.get_image(1), ds.get_lidar(1)[:, :3]
+    rng = np.random.default_rng(18)
+    points = rng.normal(0, 2, (200, 3)) + [0, 0, 20]
+    refs = [np.column_stack([np.zeros(m), np.zeros(m), np.arange(m) * 2.0 + 1]) for m in (8, 4)]
+    box = rng.normal(0, 1, (8, 3)) + [0, 0, 20]
+    viz.check_box_frustum(points, refs, box, labels=(np.arange(4) % 2),
+                          save_path=os.path.join(out, "frustum.png"))
+    viz.check_norm(points, points[:, 0] > 0, box, save_path=os.path.join(out, "norm.png"))
+    viz.show_image_with_boxes(img, objs, calib, save_path=os.path.join(out, "boxes.png"))
+    viz.show_lidar_on_image(velo, img, calib, save_path=os.path.join(out, "lidar_img.png"))
+    viz.show_lidar_with_boxes(velo, objs, calib, save_path=os.path.join(out, "lidar3d.png"))
+    plt.close("all")
+    return _files(out), [viz.compute_orientation_3d(o, calib) for o in objs]
+
+
 CFG = {os.path.basename(f)[:-5]: f for f in CFG_FILES}
 
 
@@ -741,6 +765,7 @@ CASES = {
     "sunrgbd_ingest": case_sunrgbd_ingest,
     "provider_sunrgbd_items": case_provider_sunrgbd_items,
     "sunrgbd_eval": case_sunrgbd_eval,
+    "utils.visualize": case_visualize,
 }
 
 
@@ -789,3 +814,24 @@ def test_every_copy_is_tested():
                 "engine.checkpoints", "tools.profile_stages"}
     untested = [m for m in copied if m not in port_own and f'"{m}"' not in source]
     assert copied and not untested, untested
+
+
+# the JAX package's modules whose counterparts in the port carry other names
+RENAMED = {"ops/select_pallas.py": ("ops/select_cuda.py", "csrc/group_depth_point.cu"),
+           "ops/nms_jax.py": ("ops/nms_device.py",)}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Each ``.py`` module of the JAX package has its counterpart in the
+    port: the file of the same relative path, but for the Pallas kernels
+    (the CUDA kernels and their wrappers) and the device NMS."""
+    pairs = {}
+    for dirpath, _, names in os.walk(os.path.join(ROOT, JAX_PKG)):
+        for name in names:
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, name), os.path.join(ROOT, JAX_PKG))
+                pairs[rel] = RENAMED.get(rel, (rel,))
+    missing = {rel: ports for rel, ports in pairs.items()
+               if not all(os.path.exists(os.path.join(ROOT, PORT, p)) for p in ports)}
+    assert len(pairs) > 50 and set(RENAMED) <= set(pairs) and not missing, missing
+    assert not any(os.path.exists(os.path.join(ROOT, PORT, rel)) for rel in RENAMED)
