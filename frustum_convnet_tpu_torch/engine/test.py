@@ -51,6 +51,7 @@ from frustum_convnet_tpu_torch.engine.loader import BatchLoader
 from frustum_convnet_tpu_torch.evaluation.kitti_writer import write_detection_results
 from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+from frustum_convnet_tpu_torch.ops.select_cuda import group_depth_point_multi_cuda
 from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.utils.logger import get_logger
 
@@ -313,6 +314,7 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
             warm["n"] += sum(int(b["_real"]) for b in batches)
 
     t_start = time.time()
+    launches = group_depth_point_multi_cuda.launches
     pending: deque = deque()  # (device outputs, host batches), oldest first
     batches: list = []
     gi = n = 0
@@ -355,6 +357,8 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                 f"({n_sections} foreground sections, {n_dets} detections, "
                 f"{n_overflow} overflow re-runs)"
                 f"{warm_note}")
+    logger.info(f"{group_depth_point_multi_cuda.launches - launches} grouping kernel "
+                f"launches in serving")
     stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
              "steady_frustums_per_s": steady, "sections": n_sections,
              "detections": n_dets,

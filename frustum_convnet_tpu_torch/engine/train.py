@@ -57,6 +57,7 @@ from frustum_convnet_tpu_torch.engine.loader import BatchLoader
 from frustum_convnet_tpu_torch.engine.test import strict_fp32
 from frustum_convnet_tpu_torch.models import det
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+from frustum_convnet_tpu_torch.ops.select_cuda import group_depth_point_multi_cuda
 from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.parallel.train_step import (
     TrainState, TrainStepConfig, build_eval_step, build_train_step_accum,
@@ -358,6 +359,7 @@ def _train(cfg, args, device, compute_dtype, trunk_dtype) -> dict:
         ft_start = max(cfg.TRAIN.MAX_EPOCH - cfg.TPU.F32_FINETUNE_EPOCHS, 0)
 
     step = _Step(train_fn, device, fast_fn=fast_fn, loss_keys=det.LOSS_KEYS)
+    launches = group_depth_point_multi_cuda.launches
     for epoch in range(start_epoch, cfg.TRAIN.MAX_EPOCH):
         t0 = time.time()
         finetune = ft_start is not None and epoch >= ft_start
@@ -389,6 +391,8 @@ def _train(cfg, args, device, compute_dtype, trunk_dtype) -> dict:
                                  "dtype": str(model.dtype).split(".")[-1],
                                  "train": train_avg, "val": val, **stats})
     logger.info(f"training done; best {iou_key}={best_prec:.4f} at epoch {best_epoch}")
+    logger.info(f"{group_depth_point_multi_cuda.launches - launches} grouping kernel "
+                f"launches in training")
     result.update(best_prec=best_prec, best_epoch=best_epoch)
     return result
 

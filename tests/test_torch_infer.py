@@ -137,11 +137,10 @@ def test_infer_group_matches_jax(rng, method, use_basis):
         assert (cnt.numpy() > 1).any()  # more than the argmax fallback
 
 
-@pytest.fixture(scope="module")
-def kitti_val(tmp_path_factory):
-    root = tmp_path_factory.mktemp("torch_e2e")
+def _kitti_val(root, difficulty_mix=False):
     kitti_root = str(root / "kitti_raw")
-    make_synthetic_kitti(kitti_root, num_frames=12, cars_per_frame=2, seed=1)
+    make_synthetic_kitti(kitti_root, num_frames=12, cars_per_frame=2, seed=1,
+                         difficulty_mix=difficulty_mix)
     pickle_dir = str(root / "pickles")
     os.makedirs(pickle_dir)
     extract_frustum_data_rgb_detection(
@@ -153,9 +152,25 @@ def kitti_val(tmp_path_factory):
             "pickle_dir": pickle_dir}
 
 
+@pytest.fixture(scope="module")
+def kitti_val(tmp_path_factory):
+    return _kitti_val(tmp_path_factory.mktemp("torch_e2e"))
+
+
 def test_driver_writes_same_results_as_jax(kitti_val):
     """JAX run_test + writer vs the port's CLI on the CPU: batch 5, group 2,
     so a grouped dispatch and a padded tail batch both run."""
+    _driver_matches_jax(kitti_val)
+
+
+def test_driver_writes_same_results_as_jax_on_the_difficulty_mix(tmp_path):
+    """The same on the protocol's difficulty mix (occluded, truncated and
+    sparse cars, so sparse and clipped frustums), with the same AP per
+    difficulty."""
+    _driver_matches_jax(_kitti_val(tmp_path, difficulty_mix=True))
+
+
+def _driver_matches_jax(kitti_val):
     overrides = TINY_OVERRIDES + ["DATA.DATA_ROOT", kitti_val["pickle_dir"],
                                   "TEST.BATCH_SIZE", "5", "TPU.INFER_GROUP", "2"]
     cfg = get_default_cfg()

@@ -13,7 +13,8 @@ A tiny labeled synthetic split, written by ``chip_smoke.make_train_split``
 * a non-finite loss aborts the run;
 * every precision and BatchNorm variant of ``cfg.TPU`` trains a tiny epoch
   with finite losses, and ``TPU.F32_FINETUNE_EPOCHS`` switches a float16
-  run to float32 for its last epochs with the schedule carried on;
+  run to float32 for its last epochs with the schedule carried on; such a
+  run cut into two legs across the switch ends equal to the uncut run;
 * a checkpoint the trainer wrote serves through ``engine.test.main``, also
   at half-precision ``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``.
 """
@@ -194,6 +195,56 @@ def test_f32_finetune_epochs_switch_a_float16_run(run, monkeypatch):
     state = res["state"]
     assert state.step == 6 and state.optimizer.param_groups[0]["schedule_count"] == 6
     assert all(int(s["step"]) == 6 for s in state.optimizer.state.values())
+
+
+def test_float16_run_cut_into_legs_across_the_f32_switch_equals_the_uncut_run(run):
+    """float16 with F32_FINETUNE_EPOCHS 1 over 3 epochs (float32 from epoch
+    2), once uncut and once in two legs: epoch 0, then RESUME from epoch 1 to
+    the end. The switch counts back from TRAIN.MAX_EPOCH, so a leg stopping
+    at epoch E of T takes max(N - (T - E), 0) fine-tune epochs, as
+    ``scripts/protocol_controls.sh`` gives a short leg; the recipe's own N
+    would put that leg's epoch 0 in float32. Parameters, BatchNorm
+    statistics and optimizer state end equal to the uncut run's (tolerance
+    0: the same float ops on the CPU in the same order)."""
+    f16 = ["TPU.COMPUTE_DTYPE", "float16"]
+    uncut_out, legs_out = str(run["work"] / "ft_uncut"), str(run["work"] / "ft_legs")
+    uncut = trainer.main(run["base"] + f16 + ["OUTPUT_DIR", uncut_out, "TRAIN.MAX_EPOCH", "3",
+                                              "TPU.F32_FINETUNE_EPOCHS", "1"])
+    assert [e["dtype"] for e in uncut["epochs"]] == ["float16", "float16", "float32"]
+
+    naive = trainer.main(run["base"] + f16 + ["OUTPUT_DIR", str(run["work"] / "ft_naive"),
+                                              "TRAIN.MAX_EPOCH", "1",
+                                              "TPU.F32_FINETUNE_EPOCHS", "1"])
+    assert [e["dtype"] for e in naive["epochs"]] == ["float32"]
+
+    leg1 = trainer.main(run["base"] + f16 + ["OUTPUT_DIR", legs_out, "TRAIN.MAX_EPOCH", "1",
+                                             "TPU.F32_FINETUNE_EPOCHS", "0"])
+    assert [e["dtype"] for e in leg1["epochs"]] == ["float16"]
+    leg2 = trainer.main(run["base"] + f16 + ["OUTPUT_DIR", legs_out, "TRAIN.MAX_EPOCH", "3",
+                                             "TPU.F32_FINETUNE_EPOCHS", "1", "RESUME", "True"])
+    assert leg2["start_epoch"] == 1
+    assert [(e["epoch"], e["dtype"]) for e in leg2["epochs"]] == [(1, "float16"), (2, "float32")]
+    with open(os.path.join(legs_out, "train.log")) as f:
+        leg2_log = f.read().split("resumed from ")[1]
+    assert ("epoch 2: switching to float32 fine-tune steps "
+            "(TPU.F32_FINETUNE_EPOCHS=1)") in leg2_log
+
+    a, b = uncut["state"], leg2["state"]
+    assert a.step == b.step == 9
+    for k, v in a.model.state_dict().items():
+        assert torch.equal(b.model.state_dict()[k], v), k
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    assert sa["param_groups"] == sb["param_groups"]
+    assert sa["state"].keys() == sb["state"].keys()
+    for i, s in sa["state"].items():
+        for k, v in s.items():
+            assert torch.equal(sb["state"][i][k], v), (i, k)
+    pa, pb = (torch.load(checkpoints.checkpoint_paths(out)["final"], map_location="cpu",
+                         weights_only=True) for out in (uncut_out, legs_out))
+    assert {k: pa[k] for k in ("epoch", "best_prec", "best_epoch", "step")} == {
+        k: pb[k] for k in ("epoch", "best_prec", "best_epoch", "step")}
+    assert (os.path.exists(checkpoints.checkpoint_paths(uncut_out)["best"])
+            == os.path.exists(checkpoints.checkpoint_paths(legs_out)["best"]))
 
 
 def test_trained_checkpoint_serves_through_the_test_driver(run):

@@ -158,6 +158,45 @@ def test_grads_match_jax_f64(tiny, batch_size, seed):
                                        rtol=1e-9, atol=1e-12, err_msg=name)
 
 
+def test_grads_match_jax_f64_on_a_difficulty_mix_batch(tmp_path):
+    """The same float64 comparison on a batch the port's provider draws from
+    the protocol's difficulty mix (its ``build_dataset`` at 8 frames, the
+    tiny model's cfg): occluded, truncated and sparse cars give frustums of
+    few points and clipped boxes, which the fixtures above do not."""
+    from frustum_convnet_tpu_torch import configs
+    from frustum_convnet_tpu_torch.data.provider import FrustumProvider
+    from frustum_convnet_tpu_torch.engine.loader import BatchLoader
+    from frustum_convnet_tpu_torch.models.registry import get_model_spec
+    from frustum_convnet_tpu_torch.tools.run_synth_protocol import build_dataset
+
+    _, pickles = build_dataset(8, 2, str(tmp_path), 1, difficulty_mix=True)
+    cfg = configs.get_default_cfg()
+    configs.merge_cfg_from_file("cfgs/det_sample.yaml", cfg)
+    configs.merge_cfg_from_list(
+        ["DATA.DATA_ROOT", pickles, "DATA.MAX_DEPTH", "48", "DATA.NUM_SAMPLES", "128",
+         "DATA.STRIDE", "(1.0, 2.0, 4.0, 8.0)", "DATA.HEIGHT_HALF", "(1.0, 2.0, 4.0, 8.0)"],
+        cfg)
+    spec = get_model_spec(cfg)
+    loader = BatchLoader(FrustumProvider(cfg, "train"), 16, spec.num_scales,
+                         shuffle=False, drop_last=True)
+    batch = next(iter(loader.epoch(0)))
+    assert (batch["cls_label"] == 1).any() and (batch["cls_label"] == 0).any()
+    params, stats = _variables(spec, batch)
+    want_losses, want = _jax_grads(spec, params, stats, batch, f64=True)
+    got_losses, grads, sd = _torch_grads(spec, params, stats, batch, f64=True)
+    for k, v in want_losses.items():
+        np.testing.assert_allclose(got_losses[k], v, rtol=1e-10, err_msg=k)
+    for name, g in grads.items():
+        w = want[name].numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-7,
+                                   atol=1e-9 * max(np.abs(w).max(), 1e-30),
+                                   err_msg=name)
+    for name, v in sd.items():
+        if ".running_" in name:
+            np.testing.assert_allclose(v.numpy(), want[name].numpy(),
+                                       rtol=1e-9, atol=1e-12, err_msg=name)
+
+
 def _rel(a, b):
     return (a - b).norm().item() / max(b.norm().item(), 1e-30)
 
