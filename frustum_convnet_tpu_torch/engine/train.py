@@ -219,8 +219,12 @@ def make_datasets(cfg):
     return train_ds, val_ds
 
 
-def main(argv=None):
-    """Run the driver. Returns {"state": the final TrainState, "start_epoch",
+def main(argv=None, matmul_precision: str = "highest"):
+    """Run the driver. ``matmul_precision`` is a diagnostic of the Python
+    API (no flag, no config key): the float32 matmul precision of the run
+    (``torch.set_float32_matmul_precision``; the convolutions stay strict),
+    "highest" unless a caller asks for less, and "highest" again when the
+    call returns. Returns {"state": the final TrainState, "start_epoch",
     "best_prec", "best_epoch", "epochs": [{"epoch", "prec", "dtype" (the
     epoch's compute dtype), "train" and "val" (the epoch's averages),
     **train stats}], "output_dir", "rank", "world", "backend" (the process
@@ -245,11 +249,18 @@ def main(argv=None):
         raise RuntimeError(f"--device {args.device}: no CUDA device is visible")
     # the process group before anything touches the device (env-gated)
     with mesh.distributed(device) as device:
-        return _train(cfg, args, device, compute_dtype, trunk_dtype)
+        try:
+            return _train(cfg, args, device, compute_dtype, trunk_dtype,
+                          matmul_precision)
+        finally:  # the precision is the run's alone
+            if matmul_precision != "highest":
+                torch.set_float32_matmul_precision("highest")
 
 
-def _train(cfg, args, device, compute_dtype, trunk_dtype) -> dict:
+def _train(cfg, args, device, compute_dtype, trunk_dtype, matmul_precision) -> dict:
     strict_fp32()
+    if matmul_precision != "highest":
+        torch.set_float32_matmul_precision(matmul_precision)
     world, rank = mesh.make_mesh(cfg.TPU.MESH_SHAPE, cfg.TPU.MESH_AXES), mesh.process_index()
     chief = mesh.is_chief()
 
@@ -259,6 +270,10 @@ def _train(cfg, args, device, compute_dtype, trunk_dtype) -> dict:
     logger = get_logger(os.path.join(output_dir, "train.log") if chief else None)
     logger.info(f"config: {args.cfg_file} overrides: {args.opts} on {device}"
                 + (f", rank {rank} of {world}" if mesh.initialized() else ""))
+    if matmul_precision != "highest":
+        logger.info(f"float32 matmul precision {torch.get_float32_matmul_precision()} "
+                    f"(cuBLAS TF32 {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+                    f"TF32 {torch.backends.cudnn.allow_tf32})")
 
     seed = cfg.TRAIN.SEED
     np.random.seed(seed)

@@ -40,7 +40,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import math
 from typing import Callable, Dict, Sequence
 
 import numpy as np
@@ -78,7 +77,7 @@ class TrainStepConfig:
     compute_metrics: bool = True
 
 
-def multistep_lr(cfg: TrainStepConfig) -> Callable[[int], float]:
+def multistep_lr(cfg: TrainStepConfig, dtype=np.float32) -> Callable[[int], float]:
     """Reference LR schedule with MIN_LR floor, stepped per epoch.
 
     One milestone is the reference's StepLR with ``step_size = LR_STEPS[0]``,
@@ -86,21 +85,30 @@ def multistep_lr(cfg: TrainStepConfig) -> Callable[[int], float]:
     than one is MultiStepLR, one decay at each milestone. With
     ``warmup_epochs`` the rate is ``base_lr * (step + 1) / wsteps`` for the
     first ``wsteps`` steps.
+
+    It computes in ``dtype``, op for op as the JAX schedule computes in
+    JAX's default float type: float32, or float64 under ``jax_enable_x64``.
+    So each step's rate is the JAX driver's to the bit; in double precision
+    a decayed rate would lie an ulp of float32 from it (1e-3 * 0.1 rounds to
+    9.99999975e-05, JAX's float32 product is 1.00000005e-04).
     """
+    f = np.dtype(dtype).type
     periodic = len(cfg.lr_steps) == 1
-    step_size = float(cfg.lr_steps[0]) if periodic else 1.0
-    wsteps = float(cfg.warmup_epochs) * cfg.steps_per_epoch
+    step_size = f(cfg.lr_steps[0]) if periodic else f(1.0)
+    milestones = [f(m) for m in cfg.lr_steps]
+    base_lr, gamma, min_lr = f(cfg.base_lr), f(cfg.gamma), f(cfg.min_lr)
+    wsteps = f(float(cfg.warmup_epochs) * cfg.steps_per_epoch)
 
     def schedule(step: int) -> float:
-        epoch = math.floor(step / cfg.steps_per_epoch)
+        epoch = np.floor(f(step) / f(cfg.steps_per_epoch))
         if periodic:
-            k = math.floor(epoch / step_size)
+            k = np.floor(epoch / step_size)
         else:
-            k = sum(epoch >= m for m in cfg.lr_steps)
-        lr = max(cfg.base_lr * cfg.gamma ** k, cfg.min_lr)
-        if cfg.warmup_epochs > 0 and step < wsteps:
-            lr = cfg.base_lr * (step + 1.0) / wsteps
-        return lr
+            k = f(sum(epoch >= m for m in milestones))
+        lr = max(base_lr * gamma ** k, min_lr)
+        if cfg.warmup_epochs > 0 and f(step) < wsteps:
+            lr = base_lr * (f(step) + f(1.0)) / wsteps
+        return float(lr)
 
     return schedule
 

@@ -5,7 +5,7 @@
 #   bash frustum_convnet_tpu_torch/scripts/protocol_controls.sh OUT_DIR CACHE_DIR refine STAGE1_DIR
 #
 # stage1: the stage-1 protocol (cfgs/det_sample.yaml verbatim, 2000
-# synthetic frames, TRAIN.SEED 4: the JAX round-5 control seed) through
+# synthetic frames, TRAIN.SEED SEED) through
 # run_synth_protocol, at RECIPE, to EPOCHS. With FROM_DIR (the OUT_DIR/stage1_<tag> of
 # an earlier leg that stopped short of 50 epochs) it restores that leg's
 # checkpoints and train.log and resumes (RESUME True): the LR schedule is
@@ -23,6 +23,13 @@
 # leg that does not find it.
 #
 # Environment: EPOCHS (50); MIX=1 passes --difficulty_mix (stage 1 only);
+# SEED, stage 1's TRAIN.SEED and the _s<SEED> of its run tag (4, the JAX
+# round-5 control seed; 3 is the config default, which the JAX mix row ran);
+# two diagnostics of stage 1, each adding to the run tag, neither a recipe:
+# PRECISION=medium passes --matmul_precision medium (the training call's
+# float32 matmuls at that precision; tag _medium), INIT=<weights .pth>
+# starts from those weights (TRAIN.WEIGHTS, a trainer checkpoint at epoch
+# 0; tag _init; not with FROM_DIR);
 # RECIPE, one of the JAX package's supported training recipes (bench.py,
 # SUPPORTED_TRAIN_RECIPES), each with its own run tag:
 #   f32_b32        float32, batch 32, lr 1e-3 (the default)
@@ -37,7 +44,9 @@ FROM=${4:-}
 RECIPE=${RECIPE:-f32_b32}
 EPOCHS=${EPOCHS:-50}
 MIX=${MIX:-0}
-SEED=4
+SEED=${SEED:-4}
+PRECISION=${PRECISION:-highest}
+INIT=${INIT:-}
 B128=(--override TRAIN.BATCH_SIZE 128 --override TRAIN.BASE_LR 0.004)
 case "$RECIPE" in
 f32_b32) DTYPE=float32; RECIPE_ARGS=() ;;
@@ -85,6 +94,19 @@ torch.save({k: v for k, v in p.items() if k != "optimizer"}, sys.argv[2])' \
 case "$STAGE" in
 stage1)
     S1_TAG="${RECIPE}${MIX_TAG}_s${SEED}"
+    DIAG_ARGS=()
+    if [ "$PRECISION" != highest ]; then
+        DIAG_ARGS+=(--matmul_precision "$PRECISION")
+        S1_TAG="${S1_TAG}_$PRECISION"
+    fi
+    if [ -n "$INIT" ]; then
+        if [ -n "$FROM" ]; then
+            echo "INIT starts a run at epoch 0; it does not resume FROM_DIR" >&2
+            exit 2
+        fi
+        DIAG_ARGS+=(--override TRAIN.WEIGHTS "$INIT")
+        S1_TAG="${S1_TAG}_init"
+    fi
     S1_RUN="$CACHE/run_$S1_TAG"
     RESUME_ARGS=()
     if [ -n "$FROM" ]; then
@@ -96,12 +118,16 @@ stage1)
     python3 -m frustum_convnet_tpu_torch.tools.run_synth_protocol --dtype "$DTYPE" \
         --epochs "$EPOCHS" --cache "$CACHE" --workers "$WORKERS" --tag "$S1_TAG" \
         "${MIX_ARGS[@]}" --override TRAIN.SEED "$SEED" "${RECIPE_ARGS[@]}" \
-        "${RESUME_ARGS[@]}" 2>&1 | tee "$OUT/stage1.log"
+        "${RESUME_ARGS[@]}" "${DIAG_ARGS[@]}" 2>&1 | tee "$OUT/stage1.log"
     keep "$S1_RUN" "stage1_$S1_TAG" "$([ "$EPOCHS" -lt 50 ] && echo checkpoints)"
     ;;
 refine)
     if [ "$MIX" = 1 ]; then
         echo "the refine protocol runs on proto-v1 only (MIX=1 is for stage1)" >&2
+        exit 2
+    fi
+    if [ "$PRECISION" != highest ] || [ -n "$INIT" ]; then
+        echo "PRECISION and INIT are stage-1 diagnostics" >&2
         exit 2
     fi
     S1_TAG=$(basename "${FROM:?refine needs STAGE1_DIR}")

@@ -99,23 +99,26 @@ def run_overrides(pickle_dir: str, out_dir: str, args) -> list:
 
 
 def train_then_test(cfg_path: str, overrides: list, device: str, weights_key: str,
-                    kitti_root: str, label: str):
+                    kitti_root: str, label: str, matmul_precision: str = "highest"):
     """``engine.train.main``, then ``engine.test.main`` with the run's
     ``model_<weights_key>.pth`` on the rgb-detection split. Returns
     (train seconds, AP results).
 
     The port keeps no module-global cfg, so nothing is reset between the two
     calls; what the train call leaves in the process is checked instead: the
-    float32 backend flags are still the strict ones, and the trained model
-    and optimizer state are dropped and the CUDA cache emptied before the
-    test call builds its own model from the checkpoint.
+    float32 backend flags are still the strict ones (the diagnostic
+    ``matmul_precision`` is the training call's alone: the trainer sets it
+    back), and the trained model and optimizer state are dropped and the
+    CUDA cache emptied before the test call builds its own model from the
+    checkpoint.
     """
     from frustum_convnet_tpu_torch.engine import checkpoints
     from frustum_convnet_tpu_torch.engine import test as test_cli
     from frustum_convnet_tpu_torch.engine import train as train_cli
 
     t0 = time.time()
-    res = train_cli.main(["--cfg", cfg_path, "--device", device] + overrides)
+    res = train_cli.main(["--cfg", cfg_path, "--device", device] + overrides,
+                         matmul_precision=matmul_precision)
     train_s = time.time() - t0
     steady = [e["ms_per_step"] for e in res["epochs"][1:]] or [
         e["ms_per_step"] for e in res["epochs"]]
@@ -127,7 +130,9 @@ def train_then_test(cfg_path: str, overrides: list, device: str, weights_key: st
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        raise RuntimeError("TF32 was turned on during training")
+        raise RuntimeError("TF32 was turned on during training" + (
+            f" (--matmul_precision {matmul_precision})"
+            if matmul_precision != "highest" else ""))
 
     weights = checkpoints.checkpoint_paths(out_dir)[weights_key]
     results = test_cli.main([
@@ -162,6 +167,14 @@ def main(argv=None) -> dict:
                          "(occlusion slices, truncation, sparse far objects) "
                          "so the three KITTI difficulty gates separate; "
                          "APs are NOT comparable to the v1 protocol band")
+    ap.add_argument("--matmul_precision", default="highest",
+                    choices=("highest", "medium"),
+                    help="diagnostic, not a recipe: the float32 matmul "
+                         "precision of the training call only "
+                         "(torch.set_float32_matmul_precision; the "
+                         "convolutions and serving stay strict float32). "
+                         "The JAX rows were trained where float32 matmuls "
+                         "run single-pass bfloat16")
     args = ap.parse_args(argv)
 
     kitti_root, pickle_dir = build_dataset(args.frames, args.cars, args.cache,
@@ -173,7 +186,7 @@ def main(argv=None) -> dict:
     train_s, results = train_then_test(
         os.path.join(ROOT, "cfgs", "det_sample.yaml"),
         run_overrides(pickle_dir, out_dir, args), args.device, "best",
-        kitti_root, "")
+        kitti_root, "", matmul_precision=args.matmul_precision)
 
     summary = {
         "dtype": args.dtype,
@@ -184,6 +197,8 @@ def main(argv=None) -> dict:
         "train_seconds": round(train_s, 1),
         **ap_summary(results),
     }
+    if args.matmul_precision != "highest":
+        summary["matmul_precision"] = args.matmul_precision
     write_result(summary, out_dir)
     return summary
 

@@ -13,7 +13,11 @@
   and order; numbers equal up to one unit of their last printed digit), and
   the same AP. Byte identity is out of reach in float32: the two CPU
   backends sum the matmuls and convolutions in different orders, the logits
-  differ by ~2e-6, and that flips the sixth decimal of some ``%f`` scores.
+  differ by ~2e-6, and that flips the sixth decimal of some ``%f`` scores;
+* in float64 it is not: both packages' ``build_infer_group_fn`` on the same
+  weights and the provider's ladders, each package's host postprocess and
+  KITTI writer, write byte-identical result files on the 12-frame v1 split
+  and on the difficulty mix.
 """
 
 import logging
@@ -32,12 +36,16 @@ from frustum_convnet_tpu.data.kitti.prepare import extract_frustum_data_rgb_dete
 from frustum_convnet_tpu.data.kitti.synthetic import make_synthetic_kitti
 from frustum_convnet_tpu.data.provider import FrustumProvider
 from frustum_convnet_tpu.engine import test as jtest
+from frustum_convnet_tpu.engine.loader import BatchLoader
 from frustum_convnet_tpu.evaluation import kitti_eval
 from frustum_convnet_tpu.evaluation.kitti_writer import write_detection_results
+from frustum_convnet_tpu.models.net import FrustumConvNet as JaxNet
 from frustum_convnet_tpu.models.registry import get_model_spec
 from frustum_convnet_tpu.parallel.train_step import (TrainStepConfig, init_state,
                                                      make_optimizer)
 from frustum_convnet_tpu_torch.engine import test as ttest
+from frustum_convnet_tpu_torch.evaluation.kitti_writer import (
+    write_detection_results as port_write_detection_results)
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
 from frustum_convnet_tpu_torch.models.weights import from_jax
 
@@ -224,3 +232,71 @@ def _driver_matches_jax(kitti_val):
     assert n_lines > 0 and n_same >= n_lines // 2, (n_same, n_lines)
     ap_j = kitti_eval.evaluate(gt_dir, os.path.dirname(jdir), classes=("car",))
     assert out["ap"] == ap_j
+
+
+@pytest.mark.parametrize("difficulty_mix,flagship", [(False, False), (True, False), (True, True)],
+                         ids=["v1", "mix", "mix-flagship"])
+def test_float64_serving_writes_byte_identical_files(tmp_path, difficulty_mix, flagship):
+    """The float64 witness: each package's grouped inference in float64 (JAX
+    under ``jax.enable_x64``) on the same weights, on the path that takes the
+    provider's ladders (no device rebuild, which XLA contracts into FMAs),
+    then each package's host postprocess (``postprocess_packed``) and KITTI
+    writer with the driver's NMS threshold: the result files are equal byte
+    for byte, at the tiny width and at the protocol's. Both infer functions
+    cast the points to float32 first, as the provider already stores them,
+    so the first layer sees the same inputs. The cap is every section, so
+    no batch overflows to the full path."""
+    val = _kitti_val(tmp_path, difficulty_mix=difficulty_mix)
+    cfg = get_default_cfg()
+    merge_cfg_from_file("cfgs/det_sample.yaml", cfg)
+    merge_cfg_from_list((["TEST.BATCH_SIZE", "8"] if flagship else TINY_OVERRIDES)
+                        + ["DATA.DATA_ROOT", val["pickle_dir"]], cfg)
+    spec = get_model_spec(cfg)
+    assert (spec.num_points, spec.num_out) == ((1024, 140) if flagship else (128, 24))
+    dataset = FrustumProvider(cfg, "val", one_hot=True, from_rgb_detection=True)
+    batches = list(BatchLoader(dataset, 5, spec.num_scales, shuffle=False,
+                               drop_last=False, pad_last=True, seed=0).epoch(0))
+    assert batches[0]["point_cloud"].dtype == np.float32
+    cap = spec.num_out
+    state = _state(graft._flagship(tiny=True)[2].clone(spec=spec), spec)
+
+    with jax.enable_x64():
+        f64 = lambda x: jnp.asarray(x, jnp.float64)
+        jfn = jtest.build_infer_group_fn(JaxNet(spec, dtype=jnp.float64), spec,
+                                         "nms", cap)
+        params = jax.tree_util.tree_map(f64, state.params)
+        stats = jax.tree_util.tree_map(f64, state.batch_stats)
+        jax_out = [jax.device_get(jfn(params, stats, jnp.asarray(b["point_cloud"][None]),
+                                      jnp.asarray(b["one_hot"][None]),
+                                      tuple(jnp.asarray(r[None]) for r in b["refs"])))
+                   for b in batches]
+    net = _port_model(spec, state).double()
+    tfn = ttest.build_infer_group_fn(net, spec, "nms", cap)
+    port_out = [tuple(t.numpy() for t in tfn(
+        torch.from_numpy(b["point_cloud"][None]), torch.from_numpy(b["one_hot"][None]),
+        tuple(torch.from_numpy(r[None]) for r in b["refs"]))) for b in batches]
+
+    with open(os.path.join(val["kitti_root"], "image_sets", "val.txt")) as f:
+        ids = [int(line) for line in f if line.strip()]
+    dirs = []
+    for name, outs, post, write in (
+            ("jax", jax_out, jtest.postprocess_packed, write_detection_results),
+            ("port", port_out, ttest.postprocess_packed, port_write_detection_results)):
+        det, n_dets = {}, 0
+        for (packed, cnt), b in zip(outs, batches):
+            assert packed.dtype == np.float64, name
+            n, overflow = post(packed[0], cnt[0], b, dataset, det, cap)
+            assert not overflow
+            n_dets += n
+        assert n_dets > 0, name
+        dirs.append(write(str(tmp_path / name), det, ids, nms_threshold=cfg.TEST.THRESH))
+    files = sorted(os.listdir(dirs[0]))
+    assert files == sorted(os.listdir(dirs[1])) and len(files) == len(ids)
+    n_lines = 0
+    for fname in files:
+        with open(os.path.join(dirs[0], fname), "rb") as a, \
+                open(os.path.join(dirs[1], fname), "rb") as b:
+            want, got = a.read(), b.read()
+        assert got == want, fname
+        n_lines += want.count(b"\n")
+    assert n_lines > 0

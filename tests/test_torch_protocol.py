@@ -23,8 +23,10 @@
 * ``scripts/protocol_controls.sh`` takes each of the JAX package's supported
   training recipes (``bench.py``'s ``SUPPORTED_TRAIN_RECIPES``) and no other,
   and each of its legs (stage 1, a short leg, a resumed leg, the difficulty
-  mix, refine) calls its runner with exactly its recipe's dtype and
-  overrides, under a run tag of its own.
+  mix, another seed, the two stage-1 diagnostics, refine) calls its runner
+  with exactly its recipe's dtype and overrides, under a run tag of its own;
+* the runner's ``--matmul_precision`` reaches the training call alone, and
+  its TF32 guard still refuses a training call that left TF32 on.
 """
 
 import argparse
@@ -39,6 +41,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from chip_smoke import PROTOCOL_KEYS
@@ -226,6 +229,11 @@ PROTOCOL_LEGS = {
     "f16_b128_ft40-leg25": ("f16_b128_ft40", "stage1", None, {"EPOCHS": "25"}),
     "f16_b128_ft40-resume": ("f16_b128_ft40", "stage1", "stage1_f16_b128_ft40_s4", {}),
     "f32_b32-mix": ("f32_b32", "stage1", None, {"MIX": "1"}),
+    "f32_b32-mix-s3": ("f32_b32", "stage1", None, {"MIX": "1", "SEED": "3"}),
+    "f32_b32-mix-s3-medium": ("f32_b32", "stage1", None,
+                              {"MIX": "1", "SEED": "3", "PRECISION": "medium"}),
+    "f32_b32-mix-s3-init": ("f32_b32", "stage1", None,
+                            {"MIX": "1", "SEED": "3", "INIT": "_resume/jax_init_s3.pth"}),
     "bf16_b32-refine": ("bf16_b32", "refine", "stage1_bf16_b32_s4", {}),
 }
 CASES = sorted(SCRIPTS) + [f"protocol_controls.sh-{leg}" for leg in sorted(PROTOCOL_LEGS)]
@@ -253,8 +261,10 @@ def test_port_scripts_call_port_clis_with_flags_they_accept(tmp_path, monkeypatc
     each recorded call's module is imported and its ``main`` parses them.
     Each ``protocol_controls.sh`` leg calls its runner with exactly its
     recipe's row of the JAX package's supported recipes: the dtype and
-    the overrides (after TRAIN.SEED 4 at stage 1), in a run of the
-    recipe's own tag."""
+    the overrides (after TRAIN.SEED at stage 1: ``SEED``, 4 by default), in
+    a run of the recipe's own tag, which ends in ``_s<SEED>`` (and the
+    diagnostics' ``_<PRECISION>`` and ``_init``: ``--matmul_precision`` and
+    ``TRAIN.WEIGHTS`` last)."""
     from frustum_convnet_tpu_torch import configs
 
     if case in SCRIPTS:
@@ -299,15 +309,22 @@ def test_port_scripts_call_port_clis_with_flags_they_accept(tmp_path, monkeypatc
     # keeps the switch at the recipe's epoch
     pairs = [[k, max(v - (50 - epochs), 0) if k == "TPU.F32_FINETUNE_EPOCHS" else v]
              for k, v in pairs]
-    # stage 1 trains at the control seed, refine at its cfg's seed
-    seed = [["TRAIN.SEED", 4]] if stage == "stage1" else []
+    # stage 1 trains at SEED (the control seed 4 by default), refine at its
+    # cfg's seed
+    seed = int(env.get("SEED", 4))
+    seed_pairs = [["TRAIN.SEED", seed]] if stage == "stage1" else []
     resume = [["RESUME", True]] if stage == "stage1" and from_name else []
+    init = [["TRAIN.WEIGHTS", env["INIT"]]] if "INIT" in env else []
     assert ns.dtype == dtype and ns.epochs == epochs
-    assert [[k, yaml.safe_load(v)] for k, v in ns.override] == seed + pairs + resume
-    tag = f"{recipe}{'_mix' if env.get('MIX') else ''}_s4"
+    assert ([[k, yaml.safe_load(v)] for k, v in ns.override]
+            == seed_pairs + pairs + resume + init)
+    tag = f"{recipe}{'_mix' if env.get('MIX') else ''}_s{seed}"
+    tag += f"_{env['PRECISION']}" if "PRECISION" in env else ""
+    tag += "_init" if init else ""
     if stage == "stage1":
         assert call[1] == "frustum_convnet_tpu_torch.tools.run_synth_protocol"
         assert ns.tag == tag and ns.difficulty_mix == bool(env.get("MIX"))
+        assert ns.matmul_precision == env.get("PRECISION", "highest")
     else:  # the stage-1 run of FROM's tag seeds the refine run
         assert call[1] == "frustum_convnet_tpu_torch.tools.run_refine_protocol"
         s1_tag = from_name[len("stage1_"):]
@@ -430,3 +447,45 @@ def test_protocol_summary_breaks_the_ap_down_by_difficulty(tmp_path):
             assert row["matched"] == n_gt - kitti_eval.clean_data(dropped, [], "car", d)[3]
             assert np.mean(row["samples"]) * 100 == pytest.approx(want[name][d], abs=1e-2)
     assert [row["gt"] for row in got["3d"]] == [row["gt"] for row in got["bev"]]
+
+
+@pytest.mark.parametrize("precision", ["highest", "medium"])
+def test_runner_tf32_guard_and_the_matmul_precision_diagnostic(monkeypatch, precision):
+    """``train_then_test`` hands ``--matmul_precision`` to the training call
+    alone, and serving runs strict float32. The TF32 guard still refuses a
+    training call that left TF32 on, and names the diagnostic when it is
+    on."""
+    from frustum_convnet_tpu_torch.engine import test as test_cli
+    from frustum_convnet_tpu_torch.engine import train as train_cli
+    from frustum_convnet_tpu_torch.engine.test import strict_fp32
+
+    seen = {}
+    leak = []
+
+    def fake_train(argv, matmul_precision="highest"):
+        seen["train"] = matmul_precision
+        for mod in leak:
+            mod.allow_tf32 = True
+        return {"epochs": [{"ms_per_step": 1.0}], "output_dir": "out"}
+
+    def fake_test(argv):
+        seen["serve"] = (torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32)
+        return {"ap": {}}
+
+    monkeypatch.setattr(test_cli, "main", fake_test)
+    monkeypatch.setattr(train_cli, "main", fake_train)
+    flag = "" if precision == "highest" else rf" \(--matmul_precision {precision}\)"
+    try:
+        strict_fp32()
+        run_synth_protocol.train_then_test("cfg.yaml", [], "cpu", "best", "kitti", "",
+                                           matmul_precision=precision)
+        assert seen == {"train": precision, "serve": (False, False)}
+        for mod in (torch.backends.cuda.matmul, torch.backends.cudnn):
+            leak[:] = [mod]
+            with pytest.raises(RuntimeError, match=f"TF32 was turned on during training{flag}$"):
+                run_synth_protocol.train_then_test("cfg.yaml", [], "cpu", "best", "kitti",
+                                                   "", matmul_precision=precision)
+            strict_fp32()
+    finally:
+        strict_fp32()

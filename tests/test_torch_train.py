@@ -16,7 +16,9 @@ A tiny labeled synthetic split, written by ``chip_smoke.make_train_split``
   run to float32 for its last epochs with the schedule carried on; such a
   run cut into two legs across the switch ends equal to the uncut run;
 * a checkpoint the trainer wrote serves through ``engine.test.main``, also
-  at half-precision ``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``.
+  at half-precision ``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``;
+* ``main(matmul_precision=...)``, the protocol runner's diagnostic, trains
+  at that precision and leaves strict float32 behind.
 """
 
 import json
@@ -284,3 +286,20 @@ def test_trained_checkpoint_serves_at_half_precision(run, opts):
             values = [float(v) for line in f for v in line.split()[3:]]
         assert np.isfinite(values).all()
     assert res["ap"] is not None and "car" in res["ap"]
+
+
+def test_matmul_precision_diagnostic_reaches_the_run(run):
+    """``main(matmul_precision=...)`` (Python API only, the protocol
+    runner's diagnostic) trains at that float32 matmul precision, logs it
+    with the convolutions strict, and leaves strict float32 behind; by
+    default the run logs no such line."""
+    out = str(run["work"] / "medium")
+    res = trainer.main(run["base"] + ["TRAIN.MAX_EPOCH", "1", "OUTPUT_DIR", out],
+                       matmul_precision="medium")
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    assert np.isfinite(res["epochs"][0]["train"]["total_loss"])
+    with open(os.path.join(out, "train.log")) as f:
+        assert "float32 matmul precision medium (cuBLAS TF32 True, cuDNN TF32 False)" in f.read()
+    with open(os.path.join(run["out"], "train.log")) as f:
+        assert "matmul precision" not in f.read()

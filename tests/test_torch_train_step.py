@@ -8,8 +8,9 @@ gradients come back through the same transform) through both frameworks:
   pool routing, dense-masked losses) against ``jax.grad`` of the JAX loss,
   with the running statistics after the step:
   - float64 at the tiny shape (a batch with an all-ignore and an
-    all-background frustum) and at flagship width, where round-off is
-    ~1e-13 of a leaf's magnitude: rtol 1e-7, atol 1e-9 of the leaf's max;
+    all-background frustum) and at flagship width, and on batches of the
+    protocol's difficulty mix at both widths, where round-off is ~1e-13
+    of a leaf's magnitude: rtol 1e-7, atol 1e-9 of the leaf's max;
   - float32 at flagship width, batch 2, where the JAX gradient itself lies
     up to 1.4% (relative L2 norm of a leaf; measured over five seeds) from
     its float64 value: its batch variance is ``mean2 - mean^2``, which
@@ -21,7 +22,9 @@ gradients come back through the same transform) through both frameworks:
   ``make_optimizer``, on the pattern of ``tests/test_grad_parity.py:269``,
   with the learning rate decaying twice, reaching the MIN_LR floor, and the
   schedule count reset after step 10 (the fine-tune quirk);
-* ``multistep_lr`` at the milestones, the floor and the warmup.
+* ``multistep_lr`` at the milestones, the floor and the warmup, equal to
+  the bit (both compute in float32; the trajectory's float64 run takes a
+  float64 schedule, as JAX's is under x64).
 """
 
 import jax
@@ -163,22 +166,34 @@ def test_grads_match_jax_f64_on_a_difficulty_mix_batch(tmp_path):
     the protocol's difficulty mix (its ``build_dataset`` at 8 frames, the
     tiny model's cfg): occluded, truncated and sparse cars give frustums of
     few points and clipped boxes, which the fixtures above do not."""
+    _mix_batch_matches_jax_f64(tmp_path, 8, 16, [
+        "DATA.MAX_DEPTH", "48", "DATA.NUM_SAMPLES", "128",
+        "DATA.STRIDE", "(1.0, 2.0, 4.0, 8.0)", "DATA.HEIGHT_HALF", "(1.0, 2.0, 4.0, 8.0)"])
+
+
+def test_grads_match_jax_f64_at_flagship_width_on_a_difficulty_mix_batch(tmp_path):
+    """The same at the protocol's width (``cfgs/det_sample.yaml`` as it is:
+    1024 points, 280/140/70/35 sections) on a batch of 8 drawn as the
+    trainer draws, shuffled, flipped and shifted: measured 2e-14 apart in
+    the losses, 2.4e-13 of the largest entry in the gradients."""
+    _mix_batch_matches_jax_f64(tmp_path, 16, 8, [], augment=True)
+
+
+def _mix_batch_matches_jax_f64(tmp_path, frames, batch_size, overrides, augment=False):
     from frustum_convnet_tpu_torch import configs
     from frustum_convnet_tpu_torch.data.provider import FrustumProvider
     from frustum_convnet_tpu_torch.engine.loader import BatchLoader
     from frustum_convnet_tpu_torch.models.registry import get_model_spec
     from frustum_convnet_tpu_torch.tools.run_synth_protocol import build_dataset
 
-    _, pickles = build_dataset(8, 2, str(tmp_path), 1, difficulty_mix=True)
+    _, pickles = build_dataset(frames, 2, str(tmp_path), 1, difficulty_mix=True)
     cfg = configs.get_default_cfg()
     configs.merge_cfg_from_file("cfgs/det_sample.yaml", cfg)
-    configs.merge_cfg_from_list(
-        ["DATA.DATA_ROOT", pickles, "DATA.MAX_DEPTH", "48", "DATA.NUM_SAMPLES", "128",
-         "DATA.STRIDE", "(1.0, 2.0, 4.0, 8.0)", "DATA.HEIGHT_HALF", "(1.0, 2.0, 4.0, 8.0)"],
-        cfg)
+    configs.merge_cfg_from_list(["DATA.DATA_ROOT", pickles] + overrides, cfg)
     spec = get_model_spec(cfg)
-    loader = BatchLoader(FrustumProvider(cfg, "train"), 16, spec.num_scales,
-                         shuffle=False, drop_last=True)
+    dataset = FrustumProvider(cfg, "train", random_flip=augment, random_shift=augment)
+    loader = BatchLoader(dataset, batch_size, spec.num_scales, shuffle=augment,
+                         drop_last=True)
     batch = next(iter(loader.epoch(0)))
     assert (batch["cls_label"] == 1).any() and (batch["cls_label"] == 0).any()
     params, stats = _variables(spec, batch)
@@ -288,8 +303,9 @@ def test_trajectory_matches_jax_f64():
 
     model = _torch_model(spec, params, stats, torch.float64)
     cfg = ts.TrainStepConfig(**kw)
+    # the schedule in float64, as JAX's computes under x64
     tstate = ts.TrainState(model, ts.make_optimizer(model.parameters(), cfg),
-                           ts.multistep_lr(cfg))
+                           ts.multistep_lr(cfg, np.float64))
     tstep = ts.build_train_step(spec, cfg)
     got_losses, lrs = [], []
     for i, b in enumerate(batches):
@@ -324,7 +340,7 @@ def test_trajectory_matches_jax_f64():
 ], ids=["periodic", "multistep", "floor", "warmup"])
 def test_multistep_lr_matches_jax(kw):
     """The schedule at every step around the milestones, the floor and the
-    end of the warmup (the JAX schedule computes in float32)."""
+    end of the warmup: equal to the bit, since both compute in float32."""
     cfg = dict(base_lr=1e-3, min_lr=1e-5, gamma=0.1)
     cfg.update(kw)
     ours = ts.multistep_lr(ts.TrainStepConfig(**cfg))
@@ -332,7 +348,7 @@ def test_multistep_lr_matches_jax(kw):
     steps = range(0, 500)
     got = np.array([ours(s) for s in steps])
     want = np.array([float(theirs(jnp.asarray(s, jnp.int32))) for s in steps])
-    np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_array_equal(got, want)
     assert got[0] == pytest.approx(
         cfg["base_lr"] / (cfg.get("warmup_epochs", 0) * cfg["steps_per_epoch"])
         if cfg.get("warmup_epochs") else cfg["base_lr"])
