@@ -8,10 +8,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 1. device: a CUDA card must be visible; prints its name and power limit;
 2. build: compiles ``frustum_convnet_tpu_torch/csrc/group_depth_point.cu``;
 3. kernel: the CUDA grouping kernel against its plain PyTorch version on the
-   card, bit for bit (grouped and cnt), at the flagship shapes (B=32, 64 and
-   256: the trainer's batch, the serving group's and the timed one) and on
-   every edge case of ``ops/grouping_cases``; timed with CUDA events at
-   B=32, 64 and 256 beside its bound (``tools/time_grouping.kernel_bound``),
+   card, bit for bit (grouped and cnt), at the flagship shapes (B=32, 64,
+   256 and 1024: the trainer's batch, the serving group's, the timed one
+   and the bench's largest) and on every edge case of
+   ``ops/grouping_cases``; timed with CUDA events at B=32, 64, 256 and
+   1024 beside its bound (``tools/time_grouping.kernel_bound``),
    and at B=256 in turns with the plain version (plain, kernel, kernel,
    plain);
 4. model: the flagship forward at batch 8 of the served split, on the card
@@ -73,8 +74,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
 12. families: for refine car, refine people, people and SUN-RGBD, kernel 1
     bit for bit against its plain version on a B=32 batch of the family's
     provider (``ops/grouping_cases.family_datasets``), timed alone
-    (``torch.profiler``) beside its bound and the plain version's time, and
-    the family's forward at batch 8 on the card against the CPU (TF32 off,
+    (``torch.profiler``) beside its bound and the plain version's time; bit
+    for bit also at B=256 (the bench's per-config batch) on a provider
+    batch and on the bench's fixture batch; and the family's forward at batch 8 on the card against the CPU (TF32 off,
     atol/rtol 1e-4);
 13. precision and BatchNorm variants: the bfloat16 and float16 forward at
     batch 8 of phase 5's split, card against the CPU within the CPU's own
@@ -146,6 +148,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
     batch 32 in float32 and bfloat16 (its rows, device-busy ms, kernels and
     peak memory a step), finite rows and kernel 1 on every timed call; (e)
     ``tools.profile_mlp.main`` at batch 256, its rows.
+18. bench (alone with ``--bench``, after phases 1 and 2): the port's
+    ``bench.main`` with ``--iters 3 --trials 1`` (every block of the
+    repository bench at full width: inference at B=32/256/1024, serving,
+    the float32 train sweep at 32/128/256, the supported recipes, the three
+    secondary configs and the refine train step), then
+    ``tools.bench_models`` on ``refine_people`` at batch 32 and
+    ``tools.bench_driver`` on a 64-frame synthetic split (batch 4, group 8,
+    2 in flight: two full groups). Every block's rate, TFLOP/s and MFU and
+    every number of the bench's last line must be finite and positive,
+    nothing skipped, and kernel 1 must launch in every block, the config
+    row and the driver line; prints each tool's seconds.
 
 The splits of phases 4-9 are written here from seeded numpy, with one car
 generator: the val split in the reference's 7-stream rgb-detection pickle
@@ -167,8 +180,9 @@ the float32 fine-tune and bfloat16 serving (phase 13), the people cascade's
 stage-1 and refine training and serving (phase 14), each protocol
 runner (phase 15), world-1 training and both world-1 servings and the
 2-rank training (8 steps) and serving, both ranks' launches (phase 16),
-and ``entry()``, every rank of the dry-run and both ``profile_train``
-runs (phase 17); only kernel 1 runs there.
+``entry()``, every rank of the dry-run and both ``profile_train``
+runs (phase 17), and the bench, ``bench_models`` and ``bench_driver``
+(phase 18); only kernel 1 runs there.
 ``main_path_launches`` is their sum. Kernel 1's ``family_shapes`` holds its
 phase-12 numbers. Launches that compare a kernel with its plain version are
 not counted. ``bound_ms`` is
@@ -239,15 +253,16 @@ def flagship_cfg(data_root: str | None = None, cfg_file: str = "det_sample.yaml"
 
 def phase_kernel(spec, device) -> dict:
     """Kernel vs plain version, bit for bit, on the edge cases and at the
-    flagship B=32, 64 and 256 (the tile count a row gets depends on the
-    batch); timed at those three batches beside its bound, and against the
-    plain version at B=256."""
+    flagship B=32, 64, 256 and 1024 (the tile count a row gets depends on
+    the batch; 1024 is the bench's largest inference batch, B*M*K =
+    1024*280*32 on scale 1); timed at those batches beside its bound, and
+    against the plain version at B=256."""
     from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
     from frustum_convnet_tpu_torch.ops.query_depth_point import group_depth_point_multi
     from frustum_convnet_tpu_torch.tools.time_grouping import cuda_time_ms, kernel_bound
 
     cases = dict(grouping_cases.edge_cases())
-    batches = (32, 64, 256)
+    batches = (32, 64, 256, 1024)
     for batch in batches:
         cases[f"flagship_b{batch}"] = grouping_cases.flagship_case(spec, batch=batch)
     max_err = 0.0
@@ -262,7 +277,8 @@ def phase_kernel(spec, device) -> dict:
                 raise AssertionError(f"kernel != plain version on case {name}")
             max_err = max(max_err, (g - g0).abs().max().item())
     print(f"[kernel] bit-identical to the plain version on {len(cases)} cases "
-          f"(flagship B=32, 64, 256 and {len(cases) - 3} edge cases)")
+          f"(flagship B={', '.join(map(str, batches))} and "
+          f"{len(cases) - len(batches)} edge cases)")
 
     for batch in batches:
         pts, refs, dzs, ks = cases[f"flagship_b{batch}"]
@@ -1197,8 +1213,10 @@ def phase_families(device, work: str) -> dict:
     """Kernel 1 at each other family's shapes, on B=32 batches of its
     provider (``grouping_cases.family_datasets``): bit for bit against its
     plain version (grouped and cnt), timed alone (``torch.profiler``) beside
-    its bound and the plain version's time; and each family's forward at
-    batch 8, card against CPU. Returns {family: numbers}."""
+    its bound and the plain version's time; bit for bit too at B=256, the
+    bench's per-config batch, on a provider batch and on the bench's own
+    fixture batch (``grouping_cases.flagship_case``); and each family's
+    forward at batch 8, card against CPU. Returns {family: numbers}."""
     from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
     from frustum_convnet_tpu_torch.ops.query_depth_point import group_depth_point_multi
     from frustum_convnet_tpu_torch.tools.time_grouping import (KERNEL_NAMES, alone_ms,
@@ -1206,9 +1224,8 @@ def phase_families(device, work: str) -> dict:
 
     families = grouping_cases.family_datasets(os.path.join(ROOT, "cfgs"),
                                               os.path.join(work, "families"))
-    out = {}
-    for family, (spec, dataset) in families.items():
-        pts, refs, dzs, ks = grouping_cases.provider_case(spec, dataset, 32, seed=SMOKE_SEED)
+    def bit_for_bit(case, tag):
+        pts, refs, dzs, ks = case
         t_pts = torch.from_numpy(pts).to(device)
         t_refs = [torch.from_numpy(r).to(device) for r in refs]
         got = select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks)
@@ -1217,8 +1234,20 @@ def phase_families(device, work: str) -> dict:
         err = 0.0
         for (g, c), (g0, c0) in zip(got, want):
             if g.shape != g0.shape or not torch.equal(c, c0) or not torch.equal(g, g0):
-                raise AssertionError(f"[families] kernel 1 != plain version on {family}")
+                raise AssertionError(f"[families] kernel 1 != plain version on {tag}")
             err = max(err, (g - g0).abs().max().item())
+        return t_pts, t_refs, dzs, ks, err
+
+    out = {}
+    for family, (spec, dataset) in families.items():
+        for case, tag in ((grouping_cases.provider_case(spec, dataset, 256, seed=SMOKE_SEED),
+                           "provider"),
+                          (grouping_cases.flagship_case(spec, 256), "bench fixture")):
+            bit_for_bit(case, f"{family} B=256 {tag} batch")
+        print(f"[families] {family} B=256: kernel 1 bit-identical to its plain version "
+              f"on a provider batch and on the bench's fixture batch")
+        t_pts, t_refs, dzs, ks, err = bit_for_bit(
+            grouping_cases.provider_case(spec, dataset, 32, seed=SMOKE_SEED), family)
         kernel = lambda: select_cuda.group_depth_point_multi_cuda(t_pts, t_refs, dzs, ks)
         alone = alone_ms(kernel, KERNEL_NAMES["group_depth_point_multi"])
         plain_ms = cuda_time_ms(lambda: group_depth_point_multi(t_pts, t_refs, dzs, ks), 10)
@@ -2088,11 +2117,91 @@ def phase_entry_points(device, card: str) -> dict:
     return {"paths": paths, "nms": nms, "profile_train": train_rows, "profile_mlp": mlp}
 
 
-def entry_points_main() -> int:
-    """``chip_smoke.py --entry-points``: phases 1, 2 and 17 alone."""
+BENCH_BLOCKS = 14  # the bench's blocks: 3 inference, serving, 3 + 2 train, 3 + 2 configs
+
+
+def _positive(x) -> bool:
+    return (isinstance(x, (int, float)) and not isinstance(x, bool)
+            and bool(np.isfinite(x)) and x > 0)
+
+
+def _numbers(obj, path: str = ""):
+    """(path, number) of every number inside a JSON value."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _numbers(v, f"{path}.{k}" if path else k)
+    elif isinstance(obj, list):
+        for i, v in enumerate(obj):
+            yield from _numbers(v, f"{path}[{i}]")
+    elif isinstance(obj, (int, float)) and not isinstance(obj, bool):
+        yield path, obj
+
+
+def phase_bench(card: str, work: str) -> dict:
+    """Phase 18: the port's bench on the card. ``bench.main`` with ``--iters
+    3 --trials 1``: every block measured (nothing skipped), each block's
+    rate, TFLOP/s and MFU finite and positive with kernel 1 launched in it,
+    and every measured number of the last line finite and positive (not
+    the baseline estimate's constants or the headline recipe's fields);
+    then ``tools.bench_models --only refine_people --batches 32 --iters 3``
+    and ``tools.bench_driver`` on a 64-frame split at batch 4, ``--sweep
+    8:2``, each rate finite and positive with kernel-1 launches. Returns
+    kernel 1's launches on the three paths and the bench's last line."""
+    from frustum_convnet_tpu_torch import bench
+    from frustum_convnet_tpu_torch.tools import bench_driver, bench_models
+
+    torch.cuda.empty_cache()
+    paths = {}
+    t0 = time.time()
+    _reset_counts()
+    res = bench.main(["--iters", "3", "--trials", "1"])
+    paths["bench"] = _counts()["group_depth_point_multi"]
+    blocks, result = res["blocks"], res["result"]
+    bad = [line["block"] for line in blocks
+           if not all(_positive(line[k])
+                      for k in ("value", "tflops_per_sec", "mfu_pct", "launches"))]
+    bad += [path for path, x in _numbers(result) if not _positive(x)
+            and not path.startswith(("baseline_estimate.", "train_throughput.recipe."))]
+    if result["skipped"] or len(blocks) != BENCH_BLOCKS or bad:
+        raise AssertionError(f"[bench] {len(blocks)} blocks, skipped {result['skipped']}, "
+                             f"not positive or no kernel-1 launch: {bad}")
+    print(f"[bench] bench.main --iters 3 --trials 1 on {card}: {len(blocks)} blocks in "
+          f"{time.time() - t0:.1f}s, {paths['bench']} kernel-1 launches (fewest in a "
+          f"block {min(line['launches'] for line in blocks)}); inference "
+          f"{result['value']:.1f} frustums/s at batch {result['batch']}, train "
+          f"{result['train_throughput']['value']:.1f}")
+
+    t0 = time.time()
+    _reset_counts()
+    rows = bench_models.main(["--only", "refine_people", "--batches", "32", "--iters", "3"])
+    paths["bench_models"] = _counts()["group_depth_point_multi"]
+    if (len(rows) != 1 or not all(_positive(r) for r in rows[0][2].values())
+            or paths["bench_models"] <= 0):
+        raise AssertionError(f"[bench] bench_models: {rows}, "
+                             f"{paths['bench_models']} kernel-1 launches")
+    print(f"[bench] bench_models --only refine_people --batches 32 --iters 3 in "
+          f"{time.time() - t0:.1f}s, {paths['bench_models']} kernel-1 launches")
+
+    t0 = time.time()
+    _reset_counts()
+    lines = bench_driver.main(["--frames", "64", "--batch", "4", "--sweep", "8:2",
+                               "--cache", os.path.join(work, "bench_driver")])
+    paths["bench_driver"] = _counts()["group_depth_point_multi"]
+    keys = ("frustums", "frustums_per_s", "steady_frustums_per_s", "launches")
+    if len(lines) != 1 or not all(_positive(lines[0][k]) for k in keys):
+        raise AssertionError(f"[bench] bench_driver: {lines}")
+    print(f"[bench] bench_driver --frames 64 --batch 4 --sweep 8:2 in "
+          f"{time.time() - t0:.1f}s, {paths['bench_driver']} kernel-1 launches")
+    return {"paths": paths, "bench": result}
+
+
+def _standalone() -> str | None:
+    """Phases 1 and 2 for a phase run alone: the card's ``nvidia-smi`` name
+    and power limit, TF32 off, the kernel library built; None without a
+    card."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
+        return None
     sys.path.insert(0, ROOT)
     from frustum_convnet_tpu_torch.engine import test as driver
     from frustum_convnet_tpu_torch.ops import _build
@@ -2104,7 +2213,27 @@ def entry_points_main() -> int:
     print(f"[device] {card}")
     driver.strict_fp32()
     _build.load_library("group_depth_point")
+    return card
+
+
+def entry_points_main() -> int:
+    """``chip_smoke.py --entry-points``: phases 1, 2 and 17 alone."""
+    card = _standalone()
+    if card is None:
+        return 1
     phase_entry_points(torch.device("cuda", 0), card)
+    return 0
+
+
+def bench_main() -> int:
+    """``chip_smoke.py --bench``: phases 1, 2 and 18 alone."""
+    card = _standalone()
+    if card is None:
+        return 1
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as work:
+        t0 = time.time()
+        phase_bench(card, work)
+        print(f"[bench] phase 18 in {time.time() - t0:.1f}s")
     return 0
 
 
@@ -2192,6 +2321,8 @@ def main() -> int:
         # 17. the entry points no driver runs: entry(), the dry-run, the device
         # NMS and both profilers
         entry_points = phase_entry_points(device, card)
+        # 18. the bench, the per-config sweep and the serving driver's bench
+        bench_run = phase_bench(card, work)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                     ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
@@ -2203,7 +2334,7 @@ def main() -> int:
     paths.update({k: {"group_depth_point_multi": v}
                   for k, v in {**refine, **sunrgbd, **precision, **people,
                                **runners, **data_parallel,
-                               **entry_points["paths"]}.items()})
+                               **entry_points["paths"], **bench_run["paths"]}.items()})
     records = []
     for name, launches, numbers in (
             ("group_depth_point_multi", train["counts"]["group_depth_point_multi"],
@@ -2234,4 +2365,6 @@ if __name__ == "__main__":
         sys.exit(dp_gradients_main())
     if sys.argv[1:2] == ["--entry-points"]:
         sys.exit(entry_points_main())
+    if sys.argv[1:2] == ["--bench"]:
+        sys.exit(bench_main())
     sys.exit(main())

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from frustum_convnet_tpu_torch.engine.test import strict_fp32
-from frustum_convnet_tpu_torch.tools.profile_train import time_calls
+from frustum_convnet_tpu_torch.utils.timing import time_calls
 
 ITERS = 30
 TRIALS = 3

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -38,35 +37,12 @@ from frustum_convnet_tpu_torch.graft_entry import INIT_SEED, _flagship
 from frustum_convnet_tpu_torch.models.det import compute_losses
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
 from frustum_convnet_tpu_torch.parallel import train_step as ts
+from frustum_convnet_tpu_torch.utils.timing import time_calls
 
 ITERS = 20
 TRIALS = 3
 PROFILED_STEPS = 8
 FULL_STEP_ROWS = ("full train step (metrics OFF)", "full train step (grads+adam+BN+metrics)")
-
-
-def time_calls(fn, device: torch.device, iters: int, trials: int) -> float:
-    """Best seconds a call over ``trials`` runs of ``iters`` calls after a
-    warm-up call: CUDA events on the card, the host clock on the CPU."""
-    fn()
-    best = float("inf")
-    for _ in range(trials):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            end.synchronize()
-            sec = start.elapsed_time(end) / 1e3
-        else:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            sec = time.perf_counter() - t0
-        best = min(best, sec / iters)
-    return best
 
 
 def device_profile(fn, device: torch.device, steps: int = PROFILED_STEPS) -> dict:

@@ -485,8 +485,9 @@ def test_port_imports_nothing_of_the_jax_package(tmp_path):
     the training and serving entry points (training also as the one rank of
     a gloo process group, through ``parallel.mesh``), the KITTI and SUN-RGBD
     prep CLIs, the SUN-RGBD driver, the protocol runners' dataset step,
-    ``graft_entry.entry``, the device NMS, both profilers, the viz tools and
-    ``jsonl_to_tb`` have run on the CPU at a tiny size, no module of
+    ``graft_entry.entry``, the device NMS, both profilers, the viz tools,
+    ``jsonl_to_tb`` and the bench with ``tools/bench_{models,driver}`` have
+    run on the CPU at a tiny size, no module of
     the JAX package (``frustum_convnet_tpu``), nor jax, flax or optax, is
     loaded."""
     code = f"""
@@ -587,6 +588,19 @@ profile_mlp.main(["--device", "cpu", "--tiny", "--batch", "1"])
 viz_kitti.main(["--data_root", work + "/kitti", "--idx", "0", "--save_dir", work + "/viz"])
 viz_sunrgbd.main(["--data_root", work + "/sun", "--idx", "1", "--save_dir", work + "/viz"])
 assert jsonl_to_tb.main([work + "/out"]) == 0
+
+# the bench at the tests' tiny shapes, its per-config sweep and the driver's bench
+sys.path.insert(0, {os.path.join(ROOT, "tests")!r})
+from torch_bench_tiny import tiny
+from frustum_convnet_tpu_torch import bench
+from frustum_convnet_tpu_torch.tools import bench_driver, bench_models
+tiny(bench)
+res = bench.main(["--device", "cpu", "--iters", "1", "--trials", "1"])
+assert len(res["blocks"]) == 12 and not res["result"]["skipped"], res
+assert bench_models.main(["--only", "refine_people", "--batches", "2", "--iters", "1",
+                          "--device", "cpu"])[0][0] == "refine_people"
+assert bench_driver.main(["--frames", "8", "--cars", "1", "--sweep", "1:1", "--device", "cpu",
+                          "--cache", work + "/bench"])[0]["frustums"] > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
 assert not bad, bad

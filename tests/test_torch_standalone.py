@@ -835,3 +835,28 @@ def test_every_jax_module_has_a_counterpart():
                if not all(os.path.exists(os.path.join(ROOT, PORT, p)) for p in ports)}
     assert len(pairs) > 50 and set(RENAMED) <= set(pairs) and not missing, missing
     assert not any(os.path.exists(os.path.join(ROOT, PORT, rel)) for rel in RENAMED)
+
+
+# the repository tools that the port does not carry (ROADMAP.md, "Not to port"):
+# the port reads reference-layout .pth files directly, and the reference is not
+# mounted here
+NOT_PORTED = ("tools/export_reference_checkpoint.py", "tools/import_reference_checkpoint.py",
+              "tools/reference_oracle.py")
+
+
+def test_every_root_tool_has_a_counterpart():
+    """The repository's bench (``bench.py``) and each ``tools/*.py`` has its
+    twin under the same relative path in the port, but for the three tools
+    that ROADMAP lists as not to port, which the port does not carry."""
+    tools = sorted(os.path.join("tools", n) for n in os.listdir(os.path.join(ROOT, "tools"))
+                   if n.endswith(".py"))
+    assert set(NOT_PORTED) <= set(tools) and len(tools) > 10
+    missing = [rel for rel in ["bench.py"] + tools
+               if rel not in NOT_PORTED and not os.path.exists(os.path.join(ROOT, PORT, rel))]
+    assert not missing, missing
+    assert not any(os.path.exists(os.path.join(ROOT, PORT, rel)) for rel in NOT_PORTED)
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    not_to_port = roadmap[roadmap.index("**Not to port:**"):]
+    assert "`tools/{export,import}_reference_checkpoint.py`" in not_to_port
+    assert "`tools/reference_oracle.py`" in not_to_port
