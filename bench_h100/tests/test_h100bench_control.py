@@ -1,0 +1,38 @@
+"""The control on the card: the reference computed in TF32, the precision
+next below the configurations' float32 with TF32 off, put in the program's
+place, reads ``correct`` false against every cell's limits, while the
+program on the same inputs reads true. At a size a test run holds: the
+published widths, fewer frustums and steps than a cell's.
+
+    python3 -m pytest -q bench_h100/tests/test_h100bench_control.py
+
+``python3 -m bench_h100.control`` reads the same numbers at a cell's own
+size over many seeds; the limits were set from its readings."""
+
+import argparse
+
+import pytest
+
+from bench_h100 import common, control
+
+SMALL = {"serve": {"frustums": 1024}, "train": {"steps_per_epoch": 4}}
+
+
+@pytest.mark.parametrize("cell", [c["name"] for c in
+                                  common.load_json("..", "BENCHMARK.json")["workloads"]])
+def test_the_control_fails_and_the_program_passes(cuda, monkeypatch, cell):
+    original = common.load_json
+
+    def smaller(*parts):
+        d = original(*parts)
+        if parts[0] == "traffic":
+            d = dict(d, **SMALL[d["job"]])
+            if d["job"] == "train":
+                d["frustums"] = d["batch"] * d["steps_per_epoch"]
+        return d
+
+    monkeypatch.setattr(common, "load_json", smaller)
+    out = control.readings(argparse.Namespace(workload=cell), 2**31 + 101, True, cuda)
+    limits = common.load_json("limits", f"{cell}.json")
+    assert all(out["program"][k] <= v for k, v in limits.items()), out
+    assert any(out["control"][k] > v for k, v in limits.items()), out
