@@ -515,8 +515,7 @@ def make_val_split(work: str, spec, num_frames: int = 1075,
                    cars_per_frame: int = 4, seed: int = 1) -> dict:
     """Synthetic KITTI val split: ``num_frames`` frames of ``cars_per_frame``
     cars (``synthetic_car``). 1075 frames give 4300 frustums: 67 groups of
-    two 32-frustum batches and a padded tail batch, so the steady-state
-    window spans 66 groups.
+    two 32-frustum batches and a padded tail batch.
 
     Also returns ``fg_labels`` (frustums, L) bool: the output sections that
     ``label_rule`` marks foreground on the ladder through each 2D box
@@ -736,8 +735,8 @@ def phase_driver(model, split: dict, work: str, opts=(), tag: str = "driver",
           f"{len(values)} after NMS in {len(files)} files, "
           f"{stats['overflow_reruns']} overflow re-runs")
     print(f"[{tag}] end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
-          f"{stats['seconds']:.2f}s; steady-state "
-          f"{stats['steady_frustums_per_s']:.1f} frustums/s")
+          f"{stats['seconds']:.2f}s; host seconds by span "
+          f"{ {k: round(v['s'], 3) for k, v in stats['spans'].items()} }")
     print(f"[{tag}] car AP 2D/BEV/3D (easy, moderate, hard): "
           f"{ap['car']['detection']} {ap['car']['detection_ground']} "
           f"{ap['car']['detection_3d']}")
@@ -991,7 +990,7 @@ def _serve_kitti(tag: str, cfg_file: str, raw: str, args: list, group: int = 2,
           f"{len(values)} after NMS in {len(files)} files; "
           + "; ".join(f"{c} AP 3D {ap[c]['detection_3d']}" for c in classes))
     print(f"[{tag}] serving: end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
-          f"{stats['seconds']:.2f}s; steady-state {stats['steady_frustums_per_s']} frustums/s")
+          f"{stats['seconds']:.2f}s")
     return {"launches": launches, "stats": stats, "result_dir": out["result_dir"]}
 
 
@@ -1205,7 +1204,7 @@ def phase_sunrgbd(work: str, num_frames: int = 64) -> dict:
           f"{stats['detections']} detections, {stats['degenerate']} degenerate; "
           f"mAP {written['mAP']:.4f} over {len(aps)} classes; sunrgbd_ap.json written")
     print(f"[sunrgbd] serving: end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
-          f"{stats['seconds']:.2f}s; steady-state {stats['steady_frustums_per_s']} frustums/s")
+          f"{stats['seconds']:.2f}s")
     return {"sunrgbd_training": train["launches"], "sunrgbd_serving": launches}
 
 
@@ -1965,10 +1964,10 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
           f"{s0['launches']} + {s1['launches']} kernel launches; {n_lines} result lines "
           f"match one process's in order ({n_same} byte-identical), equal AP; only rank "
           f"0 wrote")
-    print(f"[data parallel] {card}: serving in groups of one batch, steady "
-          f"{s0['stats']['steady_frustums_per_s']} / {s1['stats']['steady_frustums_per_s']} "
+    print(f"[data parallel] {card}: serving in groups of one batch, "
+          f"{s0['stats']['frustums_per_s']:.1f} / {s1['stats']['frustums_per_s']:.1f} "
           f"frustums/s on ranks 0 / 1 sharing the card, one process "
-          f"{one['stats']['steady_frustums_per_s']}")
+          f"{one['stats']['frustums_per_s']:.1f}")
 
     codes = _run_ranks({"nccl": True}, work, "dp2_nccl", timeout=300)
     if codes != [0, 0]:
@@ -2187,8 +2186,9 @@ def phase_bench(card: str, work: str) -> dict:
     lines = bench_driver.main(["--frames", "64", "--batch", "4", "--sweep", "8:2",
                                "--cache", os.path.join(work, "bench_driver")])
     paths["bench_driver"] = _counts()["group_depth_point_multi"]
-    keys = ("frustums", "frustums_per_s", "steady_frustums_per_s", "launches")
-    if len(lines) != 1 or not all(_positive(lines[0][k]) for k in keys):
+    keys = ("frustums", "frustums_per_s", "launches")
+    if (len(lines) != 1 or not all(_positive(lines[0][k]) for k in keys)
+            or lines[0]["spans"]["serve.dispatch"]["n"] < 1):
         raise AssertionError(f"[bench] bench_driver: {lines}")
     print(f"[bench] bench_driver --frames 64 --batch 4 --sweep 8:2 in "
           f"{time.time() - t0:.1f}s, {paths['bench_driver']} kernel-1 launches")

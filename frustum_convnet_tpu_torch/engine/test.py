@@ -54,6 +54,7 @@ from frustum_convnet_tpu_torch.models.net import FrustumConvNet
 from frustum_convnet_tpu_torch.ops.select_cuda import group_depth_point_multi_cuda
 from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.utils.logger import get_logger
+from frustum_convnet_tpu_torch.utils.trace import span, spanned
 
 INIT_SEED = 3  # the JAX driver's init seed for an evaluation without weights
 
@@ -251,120 +252,121 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
     them all; the stats are this rank's.
 
     Returns (det_results, stats): the KITTI writer's detection dict and
-    {"frustums", "seconds", "frustums_per_s", "steady_frustums_per_s",
-    "sections", "detections", "overflow_reruns"}: ``frustums`` counts the
-    real frustums streamed here, ``sections`` the selected foreground
-    sections (argmax fallbacks included), ``detections`` those left after
-    degenerate boxes are dropped.
+    {"frustums", "seconds", "frustums_per_s", "sections", "detections",
+    "overflow_reruns", "spans"}: ``frustums`` counts the real frustums
+    streamed here, ``sections`` the selected foreground sections (argmax
+    fallbacks included), ``detections`` those left after degenerate boxes
+    are dropped, and ``spans`` the host time of the call's parts
+    (``utils.trace``: {name: {"n": entries, "s": seconds}}): ``serve.call``
+    the whole call, ``serve.start`` the set-up before the stream,
+    ``serve.loader_wait`` each wait on the loader, ``serve.upload`` a
+    group's stack, cast and copies to the device, ``serve.dispatch`` the
+    launch of its forward, ``serve.fetch`` the copy of its packed outputs
+    back (the host waits for the device there), ``serve.postprocess`` a
+    batch's host postprocess and ``serve.full_path`` a batch re-run or run
+    whole through the full decode.
     """
-    strict_fp32()
-    model.eval()
-    device = next(model.parameters()).device
-    use_basis = hasattr(dataset, "ref_basis")
-    # topk(k) requires k <= section count; overflow re-runs keep semantics
-    fg_cap = min(fg_cap, spec.num_out)
-    cap = 1 if method != "nms" else fg_cap
-    infer_group = build_infer_group_fn(
-        model, spec, method, cap,
-        z_grids=dataset.ref_depths() if use_basis else None)
-    infer_full = build_infer_fn(model, spec)  # tail batches, overflow re-runs
-    pc, pi = mesh.process_count(), mesh.process_index()
-    loader = BatchLoader(dataset, batch_size, spec.num_scales, shuffle=False,
-                         drop_last=False, pad_last=True, seed=0,
-                         num_workers=num_workers,
-                         batch_shard=(pi, pc) if pc > 1 else None)
-    num_groups = (len(range(pi, len(loader), pc)) + group - 1) // group
-    det_results: dict = {}
-    n_dets = n_sections = n_overflow = 0
+    spans: dict = {}
+    with span("serve.call", spans):
+        with span("serve.start", spans):
+            strict_fp32()
+            model.eval()
+            device = next(model.parameters()).device
+            use_basis = hasattr(dataset, "ref_basis")
+            # topk(k) requires k <= section count; overflow re-runs keep semantics
+            fg_cap = min(fg_cap, spec.num_out)
+            cap = 1 if method != "nms" else fg_cap
+            infer_group = build_infer_group_fn(
+                model, spec, method, cap,
+                z_grids=dataset.ref_depths() if use_basis else None)
+            infer_full = build_infer_fn(model, spec)  # tail batches, overflow re-runs
+            pc, pi = mesh.process_count(), mesh.process_index()
+            loader = BatchLoader(dataset, batch_size, spec.num_scales, shuffle=False,
+                                 drop_last=False, pad_last=True, seed=0,
+                                 num_workers=num_workers,
+                                 batch_shard=(pi, pc) if pc > 1 else None)
+        num_groups = (len(range(pi, len(loader), pc)) + group - 1) // group
+        det_results: dict = {}
+        n_dets = n_sections = n_overflow = 0
 
-    def upload(x, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        return (t if dtype is None else t.to(dtype)).to(device)
+        def upload(x, dtype=None):
+            t = torch.from_numpy(np.ascontiguousarray(x))
+            return (t if dtype is None else t.to(dtype)).to(device)
 
-    def full_path(batch) -> int:
-        nonlocal n_sections
-        out = infer_full(upload(batch["point_cloud"], points_dtype),
-                         upload(batch["one_hot"]),
-                         tuple(upload(r) for r in batch["refs"]))
-        out = {k: v.cpu().numpy() for k, v in out.items()}
-        n_sections += select_foreground_batch(out["cls_probs"], int(batch["_real"]),
-                                              method)[0].size
-        return postprocess_batch(out, batch, dataset, method, det_results)
+        def full_path(batch) -> int:
+            nonlocal n_sections
+            with span("serve.full_path", spans):
+                out = infer_full(upload(batch["point_cloud"], points_dtype),
+                                 upload(batch["one_hot"]),
+                                 tuple(upload(r) for r in batch["refs"]))
+                out = {k: v.cpu().numpy() for k, v in out.items()}
+                n_sections += select_foreground_batch(out["cls_probs"], int(batch["_real"]),
+                                                      method)[0].size
+                return postprocess_batch(out, batch, dataset, method, det_results)
 
-    warm = {"t": None, "n": 0}
+        def process_group(out_dev, batches) -> None:
+            nonlocal n_dets, n_sections, n_overflow
+            with span("serve.fetch", spans):
+                packed_g, cnt_g = (t.cpu().numpy() for t in out_dev)  # waits for it
+            for g, batch in enumerate(batches):
+                with span("serve.postprocess", spans):
+                    nd, overflow = postprocess_packed(packed_g[g], cnt_g[g], batch,
+                                                      dataset, det_results, cap)
+                    if not overflow:
+                        n_sections += int(cnt_g[g][:int(batch["_real"])].sum())
+                if overflow:  # > cap fg sections: exact semantics via full path
+                    n_overflow += 1
+                    nd = full_path(batch)
+                n_dets += nd
 
-    def process_group(out_dev, batches) -> None:
-        nonlocal n_dets, n_sections, n_overflow
-        packed_g, cnt_g = (t.cpu().numpy() for t in out_dev)  # waits for it
-        for g, batch in enumerate(batches):
-            nd, overflow = postprocess_packed(packed_g[g], cnt_g[g], batch,
-                                              dataset, det_results, cap)
-            if overflow:  # > cap fg sections: exact semantics via full path
-                n_overflow += 1
-                nd = full_path(batch)
-            else:
-                n_sections += int(cnt_g[g][:int(batch["_real"])].sum())
-            n_dets += nd
-        if warm["t"] is None:
-            # the first group carries kernel builds and cold caches; the
-            # steady window counts the later groups' frustums from here to
-            # the end of the grouped stream (the tail batches are outside)
-            warm["t"] = time.time()
-        else:
-            warm["n"] += sum(int(b["_real"]) for b in batches)
-
-    t_start = time.time()
-    launches = group_depth_point_multi_cuda.launches
-    pending: deque = deque()  # (device outputs, host batches), oldest first
-    batches: list = []
-    gi = n = 0
-    for batch in loader.epoch(0):
-        n += int(batch["_real"])
-        batches.append(batch)
-        if len(batches) < group:
-            continue
-        pts_g = upload(np.stack([b["point_cloud"] for b in batches]), points_dtype)
-        oh_g = upload(np.stack([b["one_hot"] for b in batches]))
-        if use_basis:  # ladders rebuilt on the device from 6 floats/frustum
-            refs_g = (upload(np.stack([b["ref_dir"] for b in batches])),
-                      upload(np.stack([b["ref_off"] for b in batches])))
-        else:
-            refs_g = tuple(upload(np.stack([b["refs"][i] for b in batches]))
-                           for i in range(spec.num_scales))
-        pending.append((infer_group(pts_g, oh_g, refs_g), batches))
-        while len(pending) >= max(inflight, 1):
+        t_start = time.time()
+        launches = group_depth_point_multi_cuda.launches
+        pending: deque = deque()  # (device outputs, host batches), oldest first
+        batches: list = []
+        gi = n = 0
+        for batch in spanned(loader.epoch(0), "serve.loader_wait", spans):
+            n += int(batch["_real"])
+            batches.append(batch)
+            if len(batches) < group:
+                continue
+            with span("serve.upload", spans):
+                pts_g = upload(np.stack([b["point_cloud"] for b in batches]), points_dtype)
+                oh_g = upload(np.stack([b["one_hot"] for b in batches]))
+                if use_basis:  # ladders rebuilt on the device from 6 floats/frustum
+                    refs_g = (upload(np.stack([b["ref_dir"] for b in batches])),
+                              upload(np.stack([b["ref_off"] for b in batches])))
+                else:
+                    refs_g = tuple(upload(np.stack([b["refs"][i] for b in batches]))
+                                   for i in range(spec.num_scales))
+            with span("serve.dispatch", spans):
+                out_dev = infer_group(pts_g, oh_g, refs_g)
+            pending.append((out_dev, batches))
+            while len(pending) >= max(inflight, 1):
+                process_group(*pending.popleft())
+            batches = []
+            gi += 1
+            if gi % 10 == 0:
+                rate = gi * group * batch_size / (time.time() - t_start)
+                logger.info(f"group {gi}/{num_groups}  {rate:.0f} frustums/s e2e")
+        while pending:
             process_group(*pending.popleft())
-        batches = []
-        gi += 1
-        if gi % 10 == 0:
-            rate = gi * group * batch_size / (time.time() - t_start)
-            logger.info(f"group {gi}/{num_groups}  {rate:.0f} frustums/s e2e")
-    while pending:
-        process_group(*pending.popleft())
-    t_grouped = time.time()  # the steady window ends with the grouped stream
-    for batch in batches:  # final partial group: per-batch full path
-        n_dets += full_path(batch)
+        for batch in batches:  # final partial group: per-batch full path
+            n_dets += full_path(batch)
 
-    elapsed = time.time() - t_start
-    steady = None
-    warm_note = ""
-    if warm["t"] is not None and warm["n"] > 0:
-        steady = warm["n"] / max(t_grouped - warm["t"], 1e-9)
-        warm_note = f"; steady-state {steady:.0f} frustums/s after the first group"
-    where = f" on rank {pi} of {pc}" if pc > 1 else ""
-    logger.info(f"streamed {n} frustums{where} in {elapsed:.2f}s = "
-                f"{n / elapsed:.0f} frustums/s end-to-end "
-                f"({n_sections} foreground sections, {n_dets} detections, "
-                f"{n_overflow} overflow re-runs)"
-                f"{warm_note}")
-    logger.info(f"{group_depth_point_multi_cuda.launches - launches} grouping kernel "
-                f"launches in serving")
-    stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
-             "steady_frustums_per_s": steady, "sections": n_sections,
-             "detections": n_dets,
-             "overflow_reruns": n_overflow}
-    if pc > 1:  # one collective merges the ranks' detection dicts
-        det_results = mesh.allgather_detections(det_results)
+        elapsed = time.time() - t_start
+        where = f" on rank {pi} of {pc}" if pc > 1 else ""
+        logger.info(f"streamed {n} frustums{where} in {elapsed:.2f}s = "
+                    f"{n / elapsed:.0f} frustums/s end-to-end "
+                    f"({n_sections} foreground sections, {n_dets} detections, "
+                    f"{n_overflow} overflow re-runs)")
+        logger.info(f"{group_depth_point_multi_cuda.launches - launches} grouping kernel "
+                    f"launches in serving")
+        stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
+                 "sections": n_sections, "detections": n_dets,
+                 "overflow_reruns": n_overflow}
+        if pc > 1:  # one collective merges the ranks' detection dicts
+            det_results = mesh.allgather_detections(det_results)
+    stats["spans"] = spans
     return det_results, stats
 
 

@@ -99,7 +99,7 @@ def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
 
     Returns (det_results, stats): {img: {class: [[x1, y1, x2, y2, tx, ty, tz,
     l, w, h, ry, score]]}} and {"frustums", "seconds", "frustums_per_s",
-    "steady_frustums_per_s", "sections", "detections", "degenerate"}:
+    "sections", "detections", "degenerate"}:
     ``frustums`` counts the real frustums streamed here, ``sections`` the
     selected sections, ``detections`` those kept and ``degenerate`` those
     dropped for a size under 1 cm."""
@@ -155,17 +155,10 @@ def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
                 per_cls.append([box2d[0], box2d[1], box2d[2], box2d[3],
                                 tx, ty, tz, l, w, h, ry, float(s)])
 
-    warm = {"t": None, "n": 0}
-
     def process(out_dev, batches):
         out = {k: v.cpu().numpy() for k, v in out_dev.items()}  # waits for it
         for j, batch in enumerate(batches):  # padded replicas are not listed
             process_one({k: v[j] for k, v in out.items()}, batch)
-        if warm["t"] is None:
-            # the first group carries kernel builds and cold caches
-            warm["t"] = time.time()
-        else:
-            warm["n"] += sum(int(b["_real"]) for b in batches)
 
     t_start = time.time()
     pending: deque = deque()
@@ -186,19 +179,14 @@ def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
         pending.append((dispatch(acc), acc))
     while pending:
         process(*pending.popleft())
-    t_end = time.time()
-    elapsed = t_end - t_start
-    steady = (warm["n"] / max(t_end - warm["t"], 1e-9)
-              if warm["t"] is not None and warm["n"] > 0 else None)
+    elapsed = time.time() - t_start
     where = f" on rank {pi} of {pc}" if pc > 1 else ""
     logger.info(f"streamed {n} frustums{where} in {elapsed:.2f}s = "
                 f"{n / elapsed:.0f} frustums/s end-to-end ({counts['sections']} "
                 f"selected sections, {counts['detections']} detections, "
-                f"{counts['degenerate']} degenerate)"
-                + (f"; steady-state {steady:.0f} frustums/s after the first group"
-                   if steady else ""))
+                f"{counts['degenerate']} degenerate)")
     stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
-             "steady_frustums_per_s": steady, **counts}
+             **counts}
     if pc > 1:  # one collective merges the ranks' detection dicts
         det_results = mesh.allgather_detections(det_results)
     return det_results, stats

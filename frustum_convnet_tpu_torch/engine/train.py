@@ -64,6 +64,7 @@ from frustum_convnet_tpu_torch.parallel.train_step import (
     init_accum, make_optimizer, multistep_lr, reset_schedule_count, to_device)
 from frustum_convnet_tpu_torch.utils.logger import ScalarWriter, get_logger
 from frustum_convnet_tpu_torch.utils.metrics import TrainingStates
+from frustum_convnet_tpu_torch.utils.trace import span, spanned
 
 
 def save_cfg_snapshot(path: str, cfg, spec) -> None:
@@ -131,54 +132,71 @@ def run_epoch_train(step: _Step, state: TrainState, accum, loader, epoch,
 
     Returns (averages, stats): loss averages over every step and metric
     averages over the sampled steps; stats = {"steps", "frustums",
-    "seconds", "ms_per_step", "frustums_per_s"}, timed on the device from
-    the first step's launch to the last step's end; the frustums are the
-    global batches' (every rank's shard).
+    "seconds", "ms_per_step", "frustums_per_s", "spans"}, timed on the
+    device from the first step's launch to the last step's end; the
+    frustums are the global batches' (every rank's shard). ``spans`` is the
+    host time of the call's parts (``utils.trace``: {name: {"n": entries,
+    "s": seconds}}): ``train.epoch`` the whole call, ``train.loader_wait``
+    each wait on the loader, ``train.upload`` a batch's copies to the
+    device, ``train.step`` a step, within it ``train.forward`` (forward and
+    losses), ``train.backward`` (the backward and the gradients' all-reduce)
+    and ``train.optimizer`` (the update), and ``train.sync`` the
+    disp-interval reads of the losses and the read of the clock.
     """
-    n_steps = n_metric = n_frustums = 0
-    clock = None
-    for i, batch_np in enumerate(loader.epoch(epoch)):
-        batch = to_device(batch_np, step.device)
-        if clock is None:
-            clock = _Clock(step.device)
-        on_metric = (step.fast_fn is None or metric_interval <= 1
-                     or (i + 1) % metric_interval == 0 or i == 0)
-        if on_metric:
-            losses, metrics = step.fn(state, accum, batch)
-            n_metric += 1
-        else:
-            # loss-only step: the metric slots of the accumulator stay as
-            # they are
-            sub = {k: accum[k] for k in step.loss_keys}
-            losses, metrics = step.fast_fn(state, sub, batch)
-        n_steps += 1
-        n_frustums += len(batch_np["point_cloud"]) * loader.process_count
-        if (i + 1) % disp == 0 or i == 0:
-            vals = {k: float(v) for k, v in {**losses, **metrics}.items()}
-            line = " ".join(f"{k} {v:.4f}" for k, v in vals.items())
-            logger.info(f"epoch {epoch} it {i + 1}/{len(loader)} {line}")
-            # fail loudly on a numeric blow-up (the half-precision overflow
-            # class); piggybacks on the disp-interval sync, costing nothing
-            # extra
-            if not np.isfinite(vals.get("total_loss", 0.0)):
-                raise RuntimeError(
-                    f"non-finite total_loss at epoch {epoch} it {i + 1}: "
-                    f"{vals} — with TPU.COMPUTE_DTYPE=float16 this is the "
-                    f"weight-gradient overflow hazard (see configs/config.py "
-                    f"COMPUTE_DTYPE); use float32/bfloat16 or the "
-                    f"F32_FINETUNE_EPOCHS schedule")
-    seconds = 0.0
-    if clock is not None:
-        clock.stop()
-        seconds = clock.seconds()
-    loss_keys = frozenset(step.loss_keys)
-    avg = {k: float(v) / max(n_steps if k in loss_keys else n_metric, 1)
-           for k, v in accum.items()}
-    if writer:
-        writer.scalars({f"train/{k}": v for k, v in avg.items()}, epoch)
+    spans: dict = {}
+    state.spans = spans  # the step's own spans go here during the call
+    with span("train.epoch", spans):
+        n_steps = n_metric = n_frustums = 0
+        clock = None
+        batches = spanned(loader.epoch(epoch), "train.loader_wait", spans)
+        for i, batch_np in enumerate(batches):
+            with span("train.upload", spans):
+                batch = to_device(batch_np, step.device)
+            if clock is None:
+                clock = _Clock(step.device)
+            on_metric = (step.fast_fn is None or metric_interval <= 1
+                         or (i + 1) % metric_interval == 0 or i == 0)
+            with span("train.step", spans):
+                if on_metric:
+                    losses, metrics = step.fn(state, accum, batch)
+                    n_metric += 1
+                else:
+                    # loss-only step: the metric slots of the accumulator stay as
+                    # they are
+                    sub = {k: accum[k] for k in step.loss_keys}
+                    losses, metrics = step.fast_fn(state, sub, batch)
+            n_steps += 1
+            n_frustums += len(batch_np["point_cloud"]) * loader.process_count
+            if (i + 1) % disp == 0 or i == 0:
+                with span("train.sync", spans):
+                    vals = {k: float(v) for k, v in {**losses, **metrics}.items()}
+                line = " ".join(f"{k} {v:.4f}" for k, v in vals.items())
+                logger.info(f"epoch {epoch} it {i + 1}/{len(loader)} {line}")
+                # fail loudly on a numeric blow-up (the half-precision overflow
+                # class); piggybacks on the disp-interval sync, costing nothing
+                # extra
+                if not np.isfinite(vals.get("total_loss", 0.0)):
+                    raise RuntimeError(
+                        f"non-finite total_loss at epoch {epoch} it {i + 1}: "
+                        f"{vals} — with TPU.COMPUTE_DTYPE=float16 this is the "
+                        f"weight-gradient overflow hazard (see configs/config.py "
+                        f"COMPUTE_DTYPE); use float32/bfloat16 or the "
+                        f"F32_FINETUNE_EPOCHS schedule")
+        seconds = 0.0
+        if clock is not None:
+            with span("train.sync", spans):
+                clock.stop()
+                seconds = clock.seconds()
+        loss_keys = frozenset(step.loss_keys)
+        avg = {k: float(v) / max(n_steps if k in loss_keys else n_metric, 1)
+               for k, v in accum.items()}
+        if writer:
+            writer.scalars({f"train/{k}": v for k, v in avg.items()}, epoch)
+    state.spans = None
     stats = {"steps": n_steps, "frustums": n_frustums, "seconds": seconds,
              "ms_per_step": 1e3 * seconds / max(n_steps, 1),
-             "frustums_per_s": n_frustums / seconds if seconds > 0 else 0.0}
+             "frustums_per_s": n_frustums / seconds if seconds > 0 else 0.0,
+             "spans": spans}
     return avg, stats
 
 

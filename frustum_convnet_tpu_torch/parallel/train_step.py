@@ -48,6 +48,7 @@ import torch
 from frustum_convnet_tpu_torch.models.spec import DetModelSpec
 from frustum_convnet_tpu_torch.models.det import compute_losses
 from frustum_convnet_tpu_torch.parallel import mesh
+from frustum_convnet_tpu_torch.utils.trace import span
 
 BATCH_KEYS = ("point_cloud", "one_hot", "refs", "cls_label", "box3d_center",
               "box3d_heading", "box3d_size", "size_class")
@@ -140,7 +141,9 @@ def reset_schedule_count(optimizer: torch.optim.Optimizer) -> None:
 
 class TrainState:
     """The model (parameters and BatchNorm statistics), its optimizer, the
-    LR schedule and the global step count."""
+    LR schedule and the global step count; ``spans`` is the dict the step's
+    spans are counted in (``run_epoch_train`` sets it for its call), None
+    outside."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], step: int = 0):
@@ -148,6 +151,7 @@ class TrainState:
         self.optimizer = optimizer
         self.schedule = schedule
         self.step = step
+        self.spans: dict | None = None
 
 
 def to_device(batch_np: dict, device, dtype=torch.float32) -> dict:
@@ -188,27 +192,34 @@ def _totals(losses: dict, metrics: dict, psum) -> tuple:
     return ({k: vals[k] for k in losses}, {k: vals[k] for k in metrics})
 
 
-def loss_and_grads(model, spec: DetModelSpec, cfg: TrainStepConfig, batch):
+def loss_and_grads(model, spec: DetModelSpec, cfg: TrainStepConfig, batch,
+                   spans: dict | None = None):
     """Train-mode forward and losses, then the backward of the total loss:
     each parameter's ``.grad`` holds its gradient (summed over the ranks
     under a process group) and the BatchNorm running statistics have taken
-    one update. Returns (losses, metrics), detached: the global values."""
-    model.train()
-    for p in model.parameters():
-        p.grad = None
-    psum = _psum()
-    losses, metrics = _losses(model, spec, cfg, batch, cfg.compute_metrics, psum)
-    losses["total_loss"].backward()
-    mesh.all_reduce_grads(model.parameters())
+    one update. Returns (losses, metrics), detached: the global values.
+    The two halves are the spans ``train.forward`` and ``train.backward``
+    (``utils.trace``), counted in ``spans``."""
+    with span("train.forward", spans):
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        psum = _psum()
+        losses, metrics = _losses(model, spec, cfg, batch, cfg.compute_metrics, psum)
+    with span("train.backward", spans):
+        losses["total_loss"].backward()
+        mesh.all_reduce_grads(model.parameters())
     return _totals(losses, metrics, psum)
 
 
 def apply_update(state: TrainState) -> None:
-    """One optimizer update at the current schedule count, then count + 1."""
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.schedule(group["schedule_count"])
-        group["schedule_count"] += 1
-    state.optimizer.step()
+    """One optimizer update at the current schedule count, then count + 1:
+    the span ``train.optimizer``, counted in ``state.spans``."""
+    with span("train.optimizer", state.spans):
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.schedule(group["schedule_count"])
+            group["schedule_count"] += 1
+        state.optimizer.step()
     state.step += 1
 
 
@@ -216,7 +227,7 @@ def build_train_step(spec: DetModelSpec, cfg: TrainStepConfig):
     """``step(state, batch) -> (losses, metrics)``, updating ``state``."""
 
     def step(state: TrainState, batch):
-        losses, metrics = loss_and_grads(state.model, spec, cfg, batch)
+        losses, metrics = loss_and_grads(state.model, spec, cfg, batch, state.spans)
         apply_update(state)
         return losses, metrics
 

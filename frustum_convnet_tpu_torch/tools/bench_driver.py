@@ -12,10 +12,10 @@ with the port's generator, preps frustum pickles with the port's prep at
 the flagship config's shapes (1024 points, MAX_DEPTH 70, strides
 .25/.5/1/2), seeds the model, and streams the whole set. For each (point
 upload dtype, group, inflight) combination it logs the driver's lines and
-prints ``run_test``'s stats as one JSON line: cumulative and steady-state
-(after the first group) frustums/s, the frustums streamed, the overflow
-re-runs and kernel-1 launches. ``--device`` defaults to ``cuda`` and raises
-without a card.
+prints ``run_test``'s stats as one JSON line: the frustums/s, the frustums
+streamed, the overflow re-runs, the host seconds and entries of each of the
+``run_test``'s spans (``serve.upload``, ``serve.loader_wait``, ...) and kernel-1
+launches. ``--device`` defaults to ``cuda`` and raises without a card.
 """
 
 from __future__ import annotations
@@ -122,7 +122,7 @@ def main(argv=None) -> list:
             line = {"points_dtype": dtype, "group": g, "inflight": infl,
                     "batch": args.batch, "method": args.method,
                     **{k: stats[k] for k in ("frustums", "frustums_per_s",
-                                             "steady_frustums_per_s", "overflow_reruns")},
+                                             "overflow_reruns", "spans")},
                     "launches": group_depth_point_multi_cuda.launches - launches,
                     "wall_s": wall, "device": card}
             print(json.dumps(line), flush=True)
