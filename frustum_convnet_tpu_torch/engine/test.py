@@ -67,6 +67,17 @@ def strict_fp32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def upload_tensor(t: torch.Tensor, device: torch.device, dtype=None) -> torch.Tensor:
+    """Host tensor ``t`` on ``device``, cast to ``dtype`` on the host. To a
+    card it is staged in page-locked memory and copied without waiting: the
+    copy is queued behind the work already on the stream and the host goes
+    on (the host allocator reuses the staging block only after the copy)."""
+    if device.type != "cuda":
+        return (t if dtype is None else t.to(dtype)).to(device)
+    staged = torch.empty(t.shape, dtype=dtype or t.dtype, pin_memory=True).copy_(t)
+    return staged.to(device, non_blocking=True)
+
+
 def build_infer_fn(model, spec):
     """(points, one_hot, refs) -> decoded outputs, for one batch."""
 
@@ -103,7 +114,7 @@ def build_infer_group_fn(model, spec, method: str, cap: int, z_grids=None):
     sel_top = method != "nms"
     device = next(model.parameters()).device
     z_consts = (None if z_grids is None else
-                [torch.as_tensor(np.asarray(z, np.float32), device=device)
+                [upload_tensor(torch.from_numpy(np.asarray(z, np.float32)), device)
                  for z in z_grids])
 
     @torch.inference_mode()
@@ -243,9 +254,13 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
 
     BatchLoader threads prepare batches ahead; G batches go to the device as
     one forward; the host post-processes a finished group while up to
-    ``inflight`` groups are queued on the device (CUDA work is asynchronous
-    until the host copies a result back). The final partial group runs batch
-    by batch through the full path.
+    ``inflight`` groups are queued on the device. On a card nothing in the
+    group loop waits for it but the fetch of the oldest group: the uploads
+    are staged in page-locked memory and queued without waiting, the size
+    table lives on the card, and right after a group's forward is queued its
+    outputs' copy back is queued behind it and followed by an event, which
+    the fetch waits on alone. The final partial group runs batch by batch
+    through the full path, which waits for each batch.
 
     Under a process group of N > 1 ranks this rank streams its batch shard
     and the ranks' detections are merged at the end, so every rank returns
@@ -253,16 +268,18 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
 
     Returns (det_results, stats): the KITTI writer's detection dict and
     {"frustums", "seconds", "frustums_per_s", "sections", "detections",
-    "overflow_reruns", "spans"}: ``frustums`` counts the real frustums
-    streamed here, ``sections`` the selected foreground sections (argmax
-    fallbacks included), ``detections`` those left after degenerate boxes
-    are dropped, and ``spans`` the host time of the call's parts
+    "overflow_reruns", "fetch_waited", "spans"}: ``frustums`` counts the real
+    frustums streamed here, ``sections`` the selected foreground sections
+    (argmax fallbacks included), ``detections`` those left after degenerate
+    boxes are dropped, ``fetch_waited`` the groups whose outputs were not
+    back yet when the host came to fetch them (the card set the pace; always
+    0 off a card), and ``spans`` the host time of the call's parts
     (``utils.trace``: {name: {"n": entries, "s": seconds}}): ``serve.call``
     the whole call, ``serve.start`` the set-up before the stream,
     ``serve.loader_wait`` each wait on the loader, ``serve.upload`` a
     group's stack, cast and copies to the device, ``serve.dispatch`` the
-    launch of its forward, ``serve.fetch`` the copy of its packed outputs
-    back (the host waits for the device there), ``serve.postprocess`` a
+    launch of its forward and of its outputs' copy back, ``serve.fetch`` the
+    host waiting for that copy, ``serve.postprocess`` a
     batch's host postprocess and ``serve.full_path`` a batch re-run or run
     whole through the full decode.
     """
@@ -272,6 +289,7 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
             strict_fp32()
             model.eval()
             device = next(model.parameters()).device
+            on_card = device.type == "cuda"
             use_basis = hasattr(dataset, "ref_basis")
             # topk(k) requires k <= section count; overflow re-runs keep semantics
             fg_cap = min(fg_cap, spec.num_out)
@@ -287,11 +305,20 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                                  batch_shard=(pi, pc) if pc > 1 else None)
         num_groups = (len(range(pi, len(loader), pc)) + group - 1) // group
         det_results: dict = {}
-        n_dets = n_sections = n_overflow = 0
+        n_dets = n_sections = n_overflow = n_waited = 0
 
         def upload(x, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(x))
-            return (t if dtype is None else t.to(dtype)).to(device)
+            return upload_tensor(torch.from_numpy(np.ascontiguousarray(x)), device, dtype)
+
+        def queue_fetch(out_dev) -> tuple:
+            """(host outputs, the event after their copy or None, the device
+            outputs, kept until that event)."""
+            if not on_card:
+                return out_dev, None, out_dev
+            host = tuple(t.to("cpu", non_blocking=True) for t in out_dev)  # pinned
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
+            return host, done, out_dev
 
         def full_path(batch) -> int:
             nonlocal n_sections
@@ -304,10 +331,15 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                                                       method)[0].size
                 return postprocess_batch(out, batch, dataset, method, det_results)
 
-        def process_group(out_dev, batches) -> None:
-            nonlocal n_dets, n_sections, n_overflow
+        def process_group(fetch, batches) -> None:
+            nonlocal n_dets, n_sections, n_overflow, n_waited
+            host, done, _ = fetch
             with span("serve.fetch", spans):
-                packed_g, cnt_g = (t.cpu().numpy() for t in out_dev)  # waits for it
+                if done is not None:
+                    if not done.query():
+                        n_waited += 1
+                    done.synchronize()  # this group's copy, not the groups after it
+                packed_g, cnt_g = (t.numpy() for t in host)
             for g, batch in enumerate(batches):
                 with span("serve.postprocess", spans):
                     nd, overflow = postprocess_packed(packed_g[g], cnt_g[g], batch,
@@ -321,7 +353,7 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
 
         t_start = time.time()
         launches = group_depth_point_multi_cuda.launches
-        pending: deque = deque()  # (device outputs, host batches), oldest first
+        pending: deque = deque()  # (queue_fetch of a group, its batches), oldest first
         batches: list = []
         gi = n = 0
         for batch in spanned(loader.epoch(0), "serve.loader_wait", spans):
@@ -338,9 +370,9 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                 else:
                     refs_g = tuple(upload(np.stack([b["refs"][i] for b in batches]))
                                    for i in range(spec.num_scales))
-            with span("serve.dispatch", spans):
-                out_dev = infer_group(pts_g, oh_g, refs_g)
-            pending.append((out_dev, batches))
+            with span("serve.dispatch", spans):  # the copy back before the next upload
+                fetch = queue_fetch(infer_group(pts_g, oh_g, refs_g))
+            pending.append((fetch, batches))
             while len(pending) >= max(inflight, 1):
                 process_group(*pending.popleft())
             batches = []
@@ -363,7 +395,7 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                     f"launches in serving")
         stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
                  "sections": n_sections, "detections": n_dets,
-                 "overflow_reruns": n_overflow}
+                 "overflow_reruns": n_overflow, "fetch_waited": n_waited}
         if pc > 1:  # one collective merges the ranks' detection dicts
             det_results = mesh.allgather_detections(det_results)
     stats["spans"] = spans

@@ -37,12 +37,25 @@ def metric_keys(iou_thresh: float):
             f"IoU_{iou_thresh}")
 
 
+_SIZE_TABLES: Dict[tuple, torch.Tensor] = {}  # (device, dtype, mean sizes) -> table
+
+
 def _mean_sizes(spec: DetModelSpec, reg: torch.Tensor) -> torch.Tensor:
     """The size table in the computation dtype, never below float32, so an
-    f64 parity run sees f64 constants."""
-    return torch.as_tensor(
-        np.asarray(spec.mean_sizes, np.float64),
-        dtype=torch.promote_types(reg.dtype, torch.float32), device=reg.device)
+    f64 parity run sees f64 constants.
+
+    Made once per device, dtype and ``spec.mean_sizes`` and kept: a copy to
+    the card on every decode would wait there for the whole forward queued
+    before it. Made outside inference mode, so that a table a serving call
+    made first still serves a training loss's backward."""
+    dtype = torch.promote_types(reg.dtype, torch.float32)
+    key = (reg.device, dtype, spec.mean_sizes)
+    table = _SIZE_TABLES.get(key)
+    if table is None:
+        with torch.inference_mode(False):
+            table = _SIZE_TABLES[key] = torch.as_tensor(
+                np.asarray(spec.mean_sizes, np.float64), dtype=dtype, device=reg.device)
+    return table
 
 
 def decode_outputs(spec: DetModelSpec, cls_logits, reg, ref2):

@@ -163,6 +163,16 @@ def test_serve_spans_nest_under_the_call_and_count_its_parts(runs):
     assert parts <= spans["serve.call"]["s"]
 
 
+def test_serve_stats_count_the_fetches_that_waited(runs):
+    """``fetch_waited`` counts the groups whose outputs were not back when
+    the host came to fetch them: at most the groups, and none off a card,
+    where nothing is copied back."""
+    groups = -(-VAL // SERVE_BATCH) // GROUP
+    for key in ("serve_traced", "serve_plain"):
+        waited = runs[key][1]["fetch_waited"]
+        assert 0 <= waited <= groups and waited == 0, key
+
+
 def test_train_spans_nest_under_the_epoch_and_the_step(runs):
     """(b) Every train span is an annotation under ``train.epoch``; forward,
     backward and optimizer lie under ``train.step``; the counts are the
