@@ -5,10 +5,29 @@
 from the root of a checkout. The cell (``workloads`` in ``BENCHMARK.json``)
 names a configuration (``bench_h100/configs/<name>.json``) and a traffic mix
 (``bench_h100/traffic/<name>.json``); the traffic's ``job`` names the module
-that drives it (``bench_h100/<job>.py``: ``serve`` or ``train``), and the
-cell's limits are ``bench_h100/limits/<workload>.json``. With ``--trace 0``
-the line carries the cell's end-to-end metrics, with ``--trace 1`` its
-per-layer metrics, each read by ``bench_h100/metrics/<metric>.py``.
+that drives it (``bench_h100/<job>.py``: ``serve`` or ``train`` so far), and
+the cell's limits are ``bench_h100/limits/<workload>.json``. With
+``--trace 0`` the line carries the cell's end-to-end metrics, with
+``--trace 1`` its per-layer metrics, each read by
+``bench_h100/metrics/<metric>.py``.
+
+A job module is all the harness knows of a job; a new job is a new module:
+
+- ``run(job)``: set-up, window and check of one run; a dict with
+  ``end_to_end``, ``numbers`` (the compared numbers, by the limits' names),
+  ``attempted``, ``failed``, ``device`` and ``ctx`` (what the metrics read);
+- ``TINY``: overrides of the traffic for the CPU tests' size
+  (``bench_h100/tests/tiny.py``), and ``SMALL`` for the card control test's
+  (``test_h100bench_control.py``); a ``cfg`` in them merges key by key;
+- ``readings(job, control)``: the compared numbers of the stretch of the
+  timed path the check reads (``program``) and, with ``control``, the
+  control's and the faults' (``bench_h100.control``).
+
+Serving jobs share ``serve.window``: the warm calls, the timed calls, the
+traced call, the release of the program, the check and the result. A family
+of frustums hands it a ``serve.Family``: its set-up, how a call's detections
+become the arrays its check reads, that check, the traced call's kernel-1
+bound and the counters of a call's stats (``serve.KITTI`` is KITTI's).
 
 The run exits with a code other than 0 and prints no result when no CUDA
 card is visible, when the card count is below the cell's, and when, after
@@ -67,6 +86,11 @@ def read_metric(name: str, ctx: dict):
     return module.read(ctx)
 
 
+def job_module(traffic: dict):
+    """The module that drives a traffic mix: ``bench_h100.<its job>``."""
+    return importlib.import_module(f"bench_h100.{traffic['job']}")
+
+
 def make_job(args, device=None, log=log) -> tuple:
     """(BENCHMARK.json, the cell, the job the traffic's module runs). A
     ``device`` given skips the look for a card (the tests run on the CPU)."""
@@ -99,8 +123,7 @@ def run_cell(args, device=None, log=log) -> dict:
     from bench_h100 import common
 
     bench, cell, job = make_job(args, device, log)
-    traffic = job["traffic"]
-    out = importlib.import_module(f"bench_h100.{traffic['job']}").run(job)
+    out = job_module(job["traffic"]).run(job)
     limits = common.load_json("limits", f"{args.workload}.json")
     checks = {k: {"value": out["numbers"][k], "limit": v} for k, v in limits.items()}
     log("[check] readings " + json.dumps(out["numbers"]))

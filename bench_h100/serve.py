@@ -17,11 +17,19 @@ left out of the rate.
 After the window the program's model is freed and the reference works out
 every section again; each call's detections are compared with it
 (``reference.serve.compare``).
+
+The window (``window``) is every serving job's; what is KITTI's is the
+``Family`` it is handed (``KITTI``): set-up, how a call's detections become
+the arrays the check reads, the check, the traced call's kernel-1 bound and
+the counters of a call's stats. Another family's serving job is a module
+whose ``run(job)`` calls ``window`` with a ``Family`` of its own.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,6 +45,12 @@ from bench_h100.trace import Traced
 
 FIT_FRUSTUMS = 256
 SIZE_RES_STD = 0.1
+
+# the job's traffic at the CPU tests' size (bench_h100/tests/tiny.py) and at
+# the card control test's (test_h100bench_control.py); ``cfg`` merges key by key
+TINY = {"frustums": 64, "warm_calls": 1, "fit_frustums": 32,
+        "cfg": {"TEST.BATCH_SIZE": 8, "TPU.INFER_GROUP": 2}}
+SMALL = {"frustums": 1024}
 
 
 class PreparedSplit:
@@ -74,9 +88,9 @@ def reference_inputs(items: list, upload_dtype: str) -> dict:
 
 
 def fitted_params(spec: ModelSpec, seed: int, rec: dict, items: list, inputs: dict,
-                  device, log) -> dict:
+                  device, log, fit: int) -> dict:
     params = ref_model.seeded_params(spec, seed, device)
-    n = min(FIT_FRUSTUMS, len(items))
+    n = min(fit, len(items))
     sub = {k: v[:n] for k, v in inputs.items()}
     with torch.no_grad():
         ref_model.strict_fp32()
@@ -113,7 +127,8 @@ def prepare(job: dict) -> dict:
     log(f"[setup] {len(items)} items made at {time.time() - job['t_start']:.2f} s")
     split = PreparedSplit(items, rec, spec)
     inputs = reference_inputs(items, cfg.TPU.INFER_POINTS_DTYPE)
-    params = fitted_params(spec, job["seed"], rec, items, inputs, device, log)
+    params = fitted_params(spec, job["seed"], rec, items, inputs, device, log,
+                           traffic.get("fit_frustums", FIT_FRUSTUMS))
     if device.type == "cuda":  # the fit's reference forward is not the program's peak
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
@@ -150,9 +165,51 @@ def check(s: dict, served: list, device) -> tuple:
             "decision_gap": max(g["decision_gap"] for g in gaps)}, table, gaps
 
 
-def run(job: dict) -> dict:
+def served_arrays(det, s: dict):
+    """A call's detections as the arrays ``check`` reads."""
+    return ref_serve.served_arrays(det, s["frustum_of"])
+
+
+def kernel1(s: dict, device) -> tuple:
+    """The traced call's kernel-1 bound (``serve_kernel1_bound``) and its
+    launches, one a group of ``INFER_GROUP`` batches."""
+    cfg = s["cfg"]
+    return (serve_kernel1_bound(s["inputs"], s["spec"], cfg, device),
+            len(s["inputs"]["points"]) // (cfg.TEST.BATCH_SIZE * cfg.TPU.INFER_GROUP))
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """What one family of frustums brings to the serving window.
+
+    ``prepare(job)``: set-up short of the warm pass, a dict holding at least
+    ``serve()`` (one call of the family's driver over the split, returning
+    its detections and stats), ``model`` and ``spec``.
+    ``arrays(det, s)``: a call's detections as the arrays ``check`` reads.
+    ``check(s, served, device)``: the compared numbers over every call's
+    arrays, the reference's table, and a call's gaps, each with ``served``
+    and ``expected`` (detections served and due by the rule).
+    ``kernel1(s, device)``: the least device seconds of the traced call's
+    kernel-1 launches, and their count.
+    ``counters``: keys of a call's stats that ``ctx`` sums over the calls.
+    """
+
+    prepare: Callable
+    arrays: Callable
+    check: Callable
+    kernel1: Callable
+    counters: tuple = ()
+
+
+KITTI = Family(prepare, served_arrays, check, kernel1, counters=("overflow_reruns",))
+
+
+def window(job: dict, family: Family) -> dict:
+    """The warm calls, the timed calls (the second traced with ``trace``),
+    then, with the program's model freed, the check of every call; the
+    job's result."""
     device, log = job["device"], job["log"]
-    s = prepare(job)
+    s = family.prepare(job)
     for _ in range(job["traffic"]["warm_calls"]):  # the first builds and warms every shape
         s["serve"]()
     setup_s = time.time() - job["t_start"]
@@ -172,7 +229,7 @@ def run(job: dict) -> dict:
         else:
             det, stats = s["serve"]()
         calls.append({"end": elapsed(), "frustums": stats["frustums"],
-                      "overflow_reruns": stats["overflow_reruns"], "det": det})
+                      **{k: stats[k] for k in family.counters}, "det": det})
     window_s = calls[-1]["end"]
     frustums = sum(c["frustums"] for c in calls)
     log("[window] seconds a call " + " ".join(
@@ -181,24 +238,45 @@ def run(job: dict) -> dict:
     release(s, device)
 
     t_check = time.time()
-    served = [ref_serve.served_arrays(c.pop("det"), s["frustum_of"]) for c in calls]
-    numbers, _, gaps = check(s, served, device)
+    served = [family.arrays(c.pop("det"), s) for c in calls]
+    numbers, _, gaps = family.check(s, served, device)
     log(f"[check] {len(calls)} calls in {window_s:.2f} s; served {gaps[-1]['served']} "
         f"detections a call against {gaps[-1]['expected']} by the rule; the check took "
         f"{time.time() - t_check:.2f} s")
     summary = tr.summary if tr is not None else None
-    cfg = s["cfg"]
     ctx = {"job": "serve", "spec": s["spec"], "rate": frustums / window_s,
            "frustums": frustums,
-           "overflow_reruns": sum(c["overflow_reruns"] for c in calls),
+           **{k: sum(c[k] for c in calls) for k in family.counters},
            "trace": summary, "kernel1_bound_s": None}
     if summary is not None:
-        ctx["kernel1_bound_s"] = serve_kernel1_bound(s["inputs"], s["spec"], cfg, device)
-        ctx["kernel1_launches"] = len(s["inputs"]["points"]) // (
-            cfg.TEST.BATCH_SIZE * cfg.TPU.INFER_GROUP)
+        ctx["kernel1_bound_s"], ctx["kernel1_launches"] = family.kernel1(s, device)
     return {"end_to_end": {"serve_frustums_per_s": frustums / window_s, "setup_s": setup_s},
             "numbers": numbers, "attempted": frustums, "failed": 0,
             "device": device_numbers, "ctx": ctx, "window_s": window_s}
+
+
+def run(job: dict) -> dict:
+    return window(job, KITTI)
+
+
+def readings(job: dict, control: bool) -> dict:
+    """The check's numbers of one call of ``run_test`` over the split
+    (``program``) and, with ``control``, those of the reference computed in
+    TF32 put in the program's place, its detections by the serving rule
+    (``control``)."""
+    device = job["device"]
+    s = prepare(job)
+    det, _ = s["serve"]()
+    release(s, device)
+    out = {}
+    out["program"], table, _ = check(s, [served_arrays(det, s)], device)
+    if control:
+        ctl = ref_serve.section_table(s["params"], s["spec"], s["inputs"], device,
+                                      allow_tf32=True)
+        dets = ref_serve.rule_detections(ctl, s["rec"]["id"], s["rec"]["box2d"])
+        gaps = ref_serve.compare(served_arrays(dets, s), table)
+        out["control"] = {k: gaps[k] for k in out["program"]}
+    return out
 
 
 def serve_kernel1_bound(inputs: dict, spec: ModelSpec, cfg, device) -> float:

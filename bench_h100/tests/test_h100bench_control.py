@@ -13,25 +13,22 @@ import argparse
 
 import pytest
 
-from bench_h100 import common, control
+from bench_h100 import common, control, run
+from bench_h100.tests import tiny
 
-SMALL = {"serve": {"frustums": 1024}, "train": {"steps_per_epoch": 4}}
+ORIGINAL = common.load_json
+
+
+def load_json(*parts):
+    """A cell's files with the traffic at its job module's ``SMALL``."""
+    d = ORIGINAL(*parts)
+    return tiny.sized(d, run.job_module(d).SMALL) if parts[0] == "traffic" else d
 
 
 @pytest.mark.parametrize("cell", [c["name"] for c in
                                   common.load_json("..", "BENCHMARK.json")["workloads"]])
 def test_the_control_fails_and_the_program_passes(cuda, monkeypatch, cell):
-    original = common.load_json
-
-    def smaller(*parts):
-        d = original(*parts)
-        if parts[0] == "traffic":
-            d = dict(d, **SMALL[d["job"]])
-            if d["job"] == "train":
-                d["frustums"] = d["batch"] * d["steps_per_epoch"]
-        return d
-
-    monkeypatch.setattr(common, "load_json", smaller)
+    monkeypatch.setattr(common, "load_json", load_json)
     out = control.readings(argparse.Namespace(workload=cell), 2**31 + 101, True, cuda)
     limits = common.load_json("limits", f"{cell}.json")
     assert all(out["program"][k] <= v for k, v in limits.items()), out

@@ -44,6 +44,13 @@ from bench_h100.trace import Traced
 
 CHECKED_STEPS = 3
 
+# the job's traffic at the CPU tests' size (bench_h100/tests/tiny.py) and at
+# the card control test's (test_h100bench_control.py: four batches of the
+# b128 traffic's 128); ``cfg`` merges key by key
+TINY = {"batch": 4, "steps_per_epoch": 6, "frustums": 24, "trace_steps": [2, 4],
+        "warm_calls": 0, "cfg": {"TRAIN.BATCH_SIZE": 4, "disp": 3}}
+SMALL = {"steps_per_epoch": 4, "frustums": 4 * 128}
+
 
 class ReplayLoader:
     """``run_epoch_train``'s loader: the prepared batches, in order, every
@@ -276,6 +283,35 @@ def run(job: dict) -> dict:
     return {"end_to_end": {"train_frustums_per_s": frustums / window_s, "setup_s": setup_s},
             "numbers": numbers, "attempted": sum(c["steps"] for c in calls), "failed": 0,
             "device": device_numbers, "ctx": ctx, "window_s": window_s}
+
+
+def _half(batch: dict) -> dict:
+    b = len(batch["point_cloud"]) // 2
+    return {k: tuple(r[:b] for r in v) if k == "refs" else v[:b] for k, v in batch.items()}
+
+
+def readings(job: dict, control: bool) -> dict:
+    """The check's numbers of one call of ``run_epoch_train`` over the
+    checked steps (``program``) and, with ``control``, those of the
+    reference's steps computed in TF32 (``control``) and of its steps on
+    the first half of each batch, the mean taken over it (``half_batch``)."""
+    device = job["device"]
+    s = prepare(job)
+    call(s, ReplayLoader(s["batches"][:CHECKED_STEPS]), 0)
+    program = s["recorder"].readings(s["names"])
+    release(s, device)
+    out = {}
+    out["program"], ref = check(s, program, device)
+    if control:
+        cfg, first = s["cfg"], s["batches"][:CHECKED_STEPS]
+        lr, wd = cfg.TRAIN.BASE_LR, cfg.TRAIN.WEIGHT_DECAY
+        ctl = ref_train.steps(s["params"], s["names"], s["spec"], first, lr, wd, device,
+                              allow_tf32=True)
+        out["control"] = ref_train.compare(ref_train.readings(ctl), ref)
+        half = ref_train.steps(s["params"], s["names"], s["spec"],
+                               [_half(b) for b in first], lr, wd, device)
+        out["half_batch"] = ref_train.compare(ref_train.readings(half), ref)
+    return out
 
 
 def _grouping_inputs(batch: dict, device):
