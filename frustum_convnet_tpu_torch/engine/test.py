@@ -132,39 +132,130 @@ def build_infer_group_fn(model, spec, method: str, cap: int, z_grids=None):
         cls_logits, reg = model(pts, one_hot, list(refs))
         out = decode_outputs(spec, cls_logits, reg, refs[1])
         probs = out["cls_probs"]  # (G*B, L, 2)
-        length = probs.shape[1]
-        top = torch.argmax(probs[:, :, 1], dim=1)  # (G*B,)
-        if sel_top:
-            sel = top[:, None]
-            cnt = torch.ones(g * b, dtype=torch.int32, device=pts.device)
-        else:
-            fg = probs[:, :, 1] > probs[:, :, 0]
-            none = ~fg.any(dim=1)
-            ar = torch.arange(length, dtype=torch.int32, device=pts.device)
-            fg = fg | (none[:, None] & (ar[None, :] == top[:, None]))
-            key = torch.where(fg, ar, ar + length)
-            neg, _ = torch.topk(-key, cap, dim=1, largest=True, sorted=True)
-            sel_all = torch.clamp(-neg, max=length - 1)  # first-cap fg sections
-            cnt = fg.sum(dim=1).to(torch.int32)
-            slot = torch.arange(cap, dtype=torch.int32, device=pts.device)
-            sel = torch.where(slot[None, :] < cnt[:, None], sel_all,
-                              torch.zeros_like(sel_all))
-        sel = sel.long()
-
-        def take(x):
-            if x.dim() == 3:
-                return torch.gather(x, 1, sel[..., None].expand(-1, -1, x.shape[2]))
-            return torch.gather(x, 1, sel)
-
-        packed = torch.cat([
-            take(out["centers"]),                 # 3
-            take(out["headings"])[..., None],     # 1
-            take(out["sizes"]),                   # 3
-            take(probs[:, :, 1])[..., None],      # 1
-        ], dim=-1)  # (G*B, S, 8)
+        fg = None if sel_top else probs[:, :, 1] > probs[:, :, 0]
+        sel, cnt = compact_sections(probs[:, :, 1], fg, cap)
+        packed = take_sections(sel, out["centers"], out["headings"], out["sizes"],
+                               probs[:, :, 1])  # (G*B, S, 8)
         return packed.reshape(g, b, *packed.shape[1:]), cnt.reshape(g, b)
 
     return infer_group
+
+
+def compact_sections(fg_prob: torch.Tensor, fg, cap: int) -> tuple:
+    """On the device, the selected sections of each frustum (R, L): with
+    ``fg`` None the argmax of ``fg_prob``, else the sections of ``fg`` (the
+    argmax where a frustum has none), the first ``cap`` of them in section
+    order. Returns (sel (R, S) long, cnt (R,) int32 uncapped); the slots
+    past a frustum's count hold section 0."""
+    rows, length = fg_prob.shape
+    top = torch.argmax(fg_prob, dim=1)  # (R,)
+    if fg is None:
+        return top[:, None], torch.ones(rows, dtype=torch.int32, device=fg_prob.device)
+    none = ~fg.any(dim=1)
+    ar = torch.arange(length, dtype=torch.int32, device=fg_prob.device)
+    fg = fg | (none[:, None] & (ar[None, :] == top[:, None]))
+    key = torch.where(fg, ar, ar + length)
+    neg, _ = torch.topk(-key, cap, dim=1, largest=True, sorted=True)
+    sel_all = torch.clamp(-neg, max=length - 1)  # first-cap fg sections
+    cnt = fg.sum(dim=1).to(torch.int32)
+    slot = torch.arange(cap, dtype=torch.int32, device=fg_prob.device)
+    sel = torch.where(slot[None, :] < cnt[:, None], sel_all, torch.zeros_like(sel_all))
+    return sel.long(), cnt
+
+
+def take_sections(sel: torch.Tensor, centers, headings, sizes, value) -> torch.Tensor:
+    """(R, S, 8) = [cx, cy, cz, heading, l, w, h, value] of sections ``sel``
+    (R, S) from (R, L, 3), (R, L), (R, L, 3) and (R, L)."""
+
+    def take(x):
+        if x.dim() == 3:
+            return torch.gather(x, 1, sel[..., None].expand(-1, -1, x.shape[2]))
+        return torch.gather(x, 1, sel)
+
+    return torch.cat([take(centers), take(headings)[..., None], take(sizes),
+                      take(value)[..., None]], dim=-1)
+
+
+def queue_fetch(out_dev: tuple, device) -> tuple:
+    """(host outputs, the event after their copy or None, the device
+    outputs, kept until that event). On a card the copy back to page-locked
+    memory is queued behind the work already on the stream, then an event."""
+    if device.type != "cuda":
+        return out_dev, None, out_dev
+    host = tuple(t.to("cpu", non_blocking=True) for t in out_dev)  # pinned
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return host, done, out_dev
+
+
+def stream_groups(batches, group: int, inflight: int, device, spans: dict, upload,
+                  forward, postprocess, rerun=None, pad_tail: bool = False,
+                  logger=None, num_groups: int = 0) -> dict:
+    """The group pipeline both serving drivers run over their loader's
+    ``batches``.
+
+    ``group`` batches at a time: ``upload(batches)`` stacks and uploads them
+    (span ``serve.upload``) and returns the device inputs;
+    ``forward(*inputs)`` queues the grouped forward and returns its device
+    outputs, whose copy back is queued right behind it with an event (span
+    ``serve.dispatch``). Once ``inflight`` groups are queued the oldest is
+    fetched: ``serve.fetch`` waits on its event alone, then
+    ``postprocess(host, g, batch)`` takes each of its batches (numpy
+    outputs, the batch's index in the group; span ``serve.postprocess``)
+    and returns True when the batch must run again, which
+    ``rerun(batch)`` then does. With ``pad_tail`` the final partial group
+    is padded by repeating its last batch and goes the same way; without,
+    its batches are returned to the caller.
+
+    Returns {"frustums": real frustums streamed, "fetch_waited": groups
+    whose outputs were not back yet when fetched (0 off a card), "tail":
+    the batches left over}."""
+    pending: deque = deque()  # (queue_fetch of a group, its batches), oldest first
+    acc: list = []
+    n = gi = waited = 0
+    t_start = time.time()
+
+    def process(fetch, real) -> None:
+        nonlocal waited
+        host, done, _ = fetch
+        with span("serve.fetch", spans):
+            if done is not None:
+                if not done.query():
+                    waited += 1
+                done.synchronize()  # this group's copy, not the groups after it
+            outs = tuple(t.numpy() for t in host)
+        for g, batch in enumerate(real):
+            with span("serve.postprocess", spans):
+                again = postprocess(outs, g, batch)
+            if again:
+                rerun(batch)
+
+    def launch(real: list, padded: list) -> None:
+        nonlocal gi
+        with span("serve.upload", spans):
+            inputs = upload(padded)
+        with span("serve.dispatch", spans):  # the copy back before the next upload
+            fetch = queue_fetch(forward(*inputs), device)
+        pending.append((fetch, real))
+        while len(pending) >= max(inflight, 1):
+            process(*pending.popleft())
+        gi += 1
+        if logger is not None and gi % 10 == 0:
+            rate = n / (time.time() - t_start)
+            logger.info(f"group {gi}/{num_groups}  {rate:.0f} frustums/s e2e")
+
+    for batch in spanned(batches, "serve.loader_wait", spans):
+        n += int(batch["_real"])
+        acc.append(batch)
+        if len(acc) == group:
+            launch(acc, acc)
+            acc = []
+    if acc and pad_tail:
+        launch(acc, acc + [acc[-1]] * (group - len(acc)))
+        acc = []
+    while pending:
+        process(*pending.popleft())
+    return {"frustums": n, "fetch_waited": waited, "tail": acc}
 
 
 def select_foreground_batch(cls_probs: np.ndarray, real: int, method: str):
@@ -254,7 +345,8 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
 
     BatchLoader threads prepare batches ahead; G batches go to the device as
     one forward; the host post-processes a finished group while up to
-    ``inflight`` groups are queued on the device. On a card nothing in the
+    ``inflight`` groups are queued on the device (``stream_groups``, the
+    group pipeline ``run_test_sunrgbd`` shares). On a card nothing in the
     group loop waits for it but the fetch of the oldest group: the uploads
     are staged in page-locked memory and queued without waiting, the size
     table lives on the card, and right after a group's forward is queued its
@@ -289,7 +381,6 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
             strict_fp32()
             model.eval()
             device = next(model.parameters()).device
-            on_card = device.type == "cuda"
             use_basis = hasattr(dataset, "ref_basis")
             # topk(k) requires k <= section count; overflow re-runs keep semantics
             fg_cap = min(fg_cap, spec.num_out)
@@ -305,20 +396,10 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                                  batch_shard=(pi, pc) if pc > 1 else None)
         num_groups = (len(range(pi, len(loader), pc)) + group - 1) // group
         det_results: dict = {}
-        n_dets = n_sections = n_overflow = n_waited = 0
+        n_dets = n_sections = n_overflow = 0
 
         def upload(x, dtype=None):
             return upload_tensor(torch.from_numpy(np.ascontiguousarray(x)), device, dtype)
-
-        def queue_fetch(out_dev) -> tuple:
-            """(host outputs, the event after their copy or None, the device
-            outputs, kept until that event)."""
-            if not on_card:
-                return out_dev, None, out_dev
-            host = tuple(t.to("cpu", non_blocking=True) for t in out_dev)  # pinned
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-            return host, done, out_dev
 
         def full_path(batch) -> int:
             nonlocal n_sections
@@ -331,58 +412,39 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                                                       method)[0].size
                 return postprocess_batch(out, batch, dataset, method, det_results)
 
-        def process_group(fetch, batches) -> None:
-            nonlocal n_dets, n_sections, n_overflow, n_waited
-            host, done, _ = fetch
-            with span("serve.fetch", spans):
-                if done is not None:
-                    if not done.query():
-                        n_waited += 1
-                    done.synchronize()  # this group's copy, not the groups after it
-                packed_g, cnt_g = (t.numpy() for t in host)
-            for g, batch in enumerate(batches):
-                with span("serve.postprocess", spans):
-                    nd, overflow = postprocess_packed(packed_g[g], cnt_g[g], batch,
-                                                      dataset, det_results, cap)
-                    if not overflow:
-                        n_sections += int(cnt_g[g][:int(batch["_real"])].sum())
-                if overflow:  # > cap fg sections: exact semantics via full path
-                    n_overflow += 1
-                    nd = full_path(batch)
+        def upload_group(batches) -> tuple:
+            pts_g = upload(np.stack([b["point_cloud"] for b in batches]), points_dtype)
+            oh_g = upload(np.stack([b["one_hot"] for b in batches]))
+            if use_basis:  # ladders rebuilt on the device from 6 floats/frustum
+                refs_g = (upload(np.stack([b["ref_dir"] for b in batches])),
+                          upload(np.stack([b["ref_off"] for b in batches])))
+            else:
+                refs_g = tuple(upload(np.stack([b["refs"][i] for b in batches]))
+                               for i in range(spec.num_scales))
+            return pts_g, oh_g, refs_g
+
+        def postprocess(host, g, batch) -> bool:
+            nonlocal n_dets, n_sections
+            packed_g, cnt_g = host
+            nd, overflow = postprocess_packed(packed_g[g], cnt_g[g], batch, dataset,
+                                              det_results, cap)
+            if not overflow:
+                n_sections += int(cnt_g[g][:int(batch["_real"])].sum())
                 n_dets += nd
+            return overflow
+
+        def rerun(batch) -> None:  # > cap fg sections: exact semantics via full path
+            nonlocal n_dets, n_overflow
+            n_overflow += 1
+            n_dets += full_path(batch)
 
         t_start = time.time()
         launches = group_depth_point_multi_cuda.launches
-        pending: deque = deque()  # (queue_fetch of a group, its batches), oldest first
-        batches: list = []
-        gi = n = 0
-        for batch in spanned(loader.epoch(0), "serve.loader_wait", spans):
-            n += int(batch["_real"])
-            batches.append(batch)
-            if len(batches) < group:
-                continue
-            with span("serve.upload", spans):
-                pts_g = upload(np.stack([b["point_cloud"] for b in batches]), points_dtype)
-                oh_g = upload(np.stack([b["one_hot"] for b in batches]))
-                if use_basis:  # ladders rebuilt on the device from 6 floats/frustum
-                    refs_g = (upload(np.stack([b["ref_dir"] for b in batches])),
-                              upload(np.stack([b["ref_off"] for b in batches])))
-                else:
-                    refs_g = tuple(upload(np.stack([b["refs"][i] for b in batches]))
-                                   for i in range(spec.num_scales))
-            with span("serve.dispatch", spans):  # the copy back before the next upload
-                fetch = queue_fetch(infer_group(pts_g, oh_g, refs_g))
-            pending.append((fetch, batches))
-            while len(pending) >= max(inflight, 1):
-                process_group(*pending.popleft())
-            batches = []
-            gi += 1
-            if gi % 10 == 0:
-                rate = gi * group * batch_size / (time.time() - t_start)
-                logger.info(f"group {gi}/{num_groups}  {rate:.0f} frustums/s e2e")
-        while pending:
-            process_group(*pending.popleft())
-        for batch in batches:  # final partial group: per-batch full path
+        streamed = stream_groups(loader.epoch(0), group, inflight, device, spans,
+                                 upload_group, infer_group, postprocess, rerun,
+                                 logger=logger, num_groups=num_groups)
+        n = streamed["frustums"]
+        for batch in streamed["tail"]:  # final partial group: per-batch full path
             n_dets += full_path(batch)
 
         elapsed = time.time() - t_start
@@ -395,7 +457,7 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                     f"launches in serving")
         stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
                  "sections": n_sections, "detections": n_dets,
-                 "overflow_reruns": n_overflow, "fetch_waited": n_waited}
+                 "overflow_reruns": n_overflow, "fetch_waited": streamed["fetch_waited"]}
         if pc > 1:  # one collective merges the ranks' detection dicts
             det_results = mesh.allgather_detections(det_results)
     stats["spans"] = spans

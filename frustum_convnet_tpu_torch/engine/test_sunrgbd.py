@@ -9,11 +9,14 @@ to centroid-anchored boxes (no h/2 bottom shift), drop degenerate sizes,
 convert to 8-corner form, optional 3D NMS, then in-process VOC AP at 3D IoU
 ``cfg.IOU_THRESH`` against ground truth built from the label files.
 
-The pipelining is the JAX driver's: BatchLoader threads prepare batches
-ahead, G batches go to the device as one flattened forward (the tail group
-padded by repeating its last batch), and up to ``inflight`` groups queue on
-the device while the host post-processes finished ones. The model computes
-in ``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``, as in ``engine/test.py``.
+The pipelining is ``run_test``'s group pipeline
+(``engine.test.stream_groups``): BatchLoader threads prepare batches ahead,
+G batches go to the device as one flattened forward (the tail group padded
+by repeating its last batch, as the JAX driver does), the selection runs on
+the device and only the selected sections come back, and up to
+``inflight`` groups queue on the device while the host post-processes
+finished ones, a batch at a time. The model computes in
+``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``, as in ``engine/test.py``.
 
 Several cards serve as N processes, one a card, as ``engine/test.py`` does
 (``--device cuda`` and the environment of ``parallel.mesh``): rank r
@@ -27,7 +30,6 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from collections import deque
 
 import numpy as np
 import torch
@@ -35,17 +37,18 @@ import torch
 from frustum_convnet_tpu_torch import configs
 from frustum_convnet_tpu_torch.core import geometry_np as gnp
 from frustum_convnet_tpu_torch.core.nms import rotate_nms_3d
-from frustum_convnet_tpu_torch.data.provider_sunrgbd import (
-    FrustumSunrgbdProvider, from_prediction_to_label_format)
+from frustum_convnet_tpu_torch.data.provider_sunrgbd import FrustumSunrgbdProvider
 from frustum_convnet_tpu_torch.data.sunrgbd.prepare import TYPE_WHITELIST_10
 from frustum_convnet_tpu_torch.engine.loader import BatchLoader
-from frustum_convnet_tpu_torch.engine.test import (INIT_SEED, load_state_for_test,
-                                                   strict_fp32)
+from frustum_convnet_tpu_torch.engine.test import (INIT_SEED, compact_sections,
+                                                   load_state_for_test, stream_groups,
+                                                   strict_fp32, take_sections, upload_tensor)
 from frustum_convnet_tpu_torch.evaluation.sunrgbd_eval import build_gt_all, eval_det
 from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
 from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.utils.logger import get_logger
+from frustum_convnet_tpu_torch.utils.trace import span
 
 FG_PROB_THRESH = 0.5
 
@@ -55,15 +58,19 @@ def corners_from_params(center, size, heading) -> np.ndarray:
     return gnp.box3d_corners(np.asarray(center), np.asarray(size), float(heading))
 
 
-def build_infer_group_flat_fn(model, spec):
-    """G stacked batches -> one flattened (G*B) forward, full decode back.
+def build_infer_group_sun_fn(model, spec, method: str):
+    """G stacked batches -> one flattened (G*B) forward, with the selection
+    on the device.
 
-    The SUN-RGBD postprocess scores with the full per-section size
-    probabilities (score = rgb prob + max size prob), so the outputs come
-    back undecimated, reshaped to (G, B, ...)."""
+    Returns, per frustum, only the selected sections packed as (G, B, S, 8)
+    = [cx, cy, cz, heading, l, w, h, max size prob] plus the selected count
+    (G, B). 'nms' keeps the sections with fg prob > 0.5 (the argmax when
+    none is) in section order, S = L, so none is left out; 'top' the
+    argmax, S = 1. The 5 ladders come as they are (G, B, M_i, 3)."""
+    sel_top = method != "nms"
 
     @torch.inference_mode()
-    def infer_group(pts_g, one_hot_g, refs_g):
+    def infer_group(pts_g, one_hot_g, *refs_g):
         g, b = pts_g.shape[:2]
 
         def flat(x):
@@ -73,20 +80,62 @@ def build_infer_group_flat_fn(model, spec):
         # pts may arrive in the reduced upload dtype: kernel 1 takes float32
         cls_logits, reg = model(flat(pts_g).float(), flat(one_hot_g), refs)
         out = decode_outputs(spec, cls_logits, reg, refs[1])
-        return {k: v.reshape((g, b) + tuple(v.shape[1:])) for k, v in out.items()}
+        fg_prob = out["cls_probs"][:, :, 1]
+        sel, cnt = compact_sections(fg_prob, None if sel_top else fg_prob > FG_PROB_THRESH,
+                                    spec.num_out)
+        packed = take_sections(sel, out["centers"], out["headings"], out["sizes"],
+                               out["size_probs"].amax(dim=-1))  # (G*B, S, 8)
+        return packed.reshape(g, b, *packed.shape[1:]), cnt.reshape(g, b)
 
     return infer_group
 
 
-def select_sections(cls_probs: np.ndarray, method: str) -> np.ndarray:
-    """One frustum's selected sections from cls_probs (L, 2): 'nms' keeps
-    every section with fg prob > 0.5 (the argmax when none is), 'top' the
-    argmax."""
-    if method == "nms":
-        fg_idx = np.nonzero(cls_probs[:, 1] > FG_PROB_THRESH)[0]
-        if fg_idx.size:
-            return fg_idx
-    return np.array([np.argmax(cls_probs[:, 1])])
+def label_format_batch(centers, headings, sizes, rot_angles) -> np.ndarray:
+    """(D, 7) float64 = [tx, ty, tz, l, w, h, ry] of D boxes, centroid-anchored
+    (no h/2 shift): row for row, bit for bit, what
+    ``data.provider_sunrgbd.from_prediction_to_label_format`` gives for the
+    same rows (the rotation's cos and sin in the dtype of ``rot_angles``, as
+    there)."""
+    rot_angles = np.asarray(rot_angles)
+    ry = np.asarray(headings) + rot_angles
+    c, s = np.cos(-rot_angles), np.sin(-rot_angles)
+    centers = np.asarray(centers, dtype=np.float64)
+    out = np.empty((len(centers), 7), dtype=np.float64)
+    out[:, 0] = c * centers[:, 0] - s * centers[:, 2]
+    out[:, 1] = centers[:, 1]
+    out[:, 2] = s * centers[:, 0] + c * centers[:, 2]
+    out[:, 3:6] = sizes
+    out[:, 6] = ry
+    return out
+
+
+def postprocess_packed_sun(packed: np.ndarray, cnt: np.ndarray, batch: dict, dataset,
+                           det_results: dict, counts: dict) -> None:
+    """Detections of one packed batch (packed (B, S, 8), cnt (B,)), appended
+    to ``det_results`` in frustum and section order; score = 2D detector
+    prob + max size prob, boxes with a side under 1 cm dropped. Every real
+    frustum gets its image and class entry, kept boxes or not."""
+    real = int(batch["_real"])
+    cnt = cnt[:real]
+    idxs = [int(i) for i in batch["_indices"][:real]]
+    ids, types, box2ds = dataset.data["id"], dataset.data["type"], dataset.data["box2d"]
+    per_cls = [det_results.setdefault(int(ids[gi]), {}).setdefault(types[gi], [])
+               for gi in idxs]
+    slot = np.arange(packed.shape[1])
+    det_b, det_s = np.nonzero(slot[None, :] < cnt[:, None])
+    rows = packed[det_b, det_s]  # (D, 8)
+    rgb_probs = batch.get("rgb_prob", np.ones(len(batch["_indices"]), np.float32)).reshape(-1)
+    boxes = label_format_batch(rows[:, 0:3], rows[:, 3], rows[:, 4:7],
+                               batch["rot_angle"].reshape(-1)[det_b])
+    scores = rgb_probs[det_b] + rows[:, 7]
+    degenerate = (rows[:, 4:7] < 0.01).any(axis=1)
+    counts["sections"] += len(det_b)
+    counts["degenerate"] += int(degenerate.sum())
+    counts["detections"] += int((~degenerate).sum())
+    for d in np.nonzero(~degenerate)[0]:
+        b2 = box2ds[idxs[det_b[d]]]
+        per_cls[det_b[d]].append([b2[0], b2[1], b2[2], b2[3], *boxes[d].tolist(),
+                                  float(scores[d])])
 
 
 def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
@@ -94,101 +143,72 @@ def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
                      points_dtype: torch.dtype = torch.float16):
     """Stream ``dataset`` through ``model`` on its device; accumulate detections.
 
+    The group pipeline is ``engine.test.stream_groups``, ``run_test``'s: the
+    points (in ``points_dtype``), the one-hot and the 5 ladders go up in
+    page-locked memory without waiting; the forward, decode and selection
+    run on the device and only the selected sections come back, behind one
+    event a group, which the fetch waits on alone; the host postprocesses a
+    batch at a time. The final partial group is padded by repeating its last
+    batch.
+
     Under a process group of N > 1 ranks this rank streams its batch shard
     and every rank returns the merged detections; the stats are this rank's.
 
     Returns (det_results, stats): {img: {class: [[x1, y1, x2, y2, tx, ty, tz,
     l, w, h, ry, score]]}} and {"frustums", "seconds", "frustums_per_s",
-    "sections", "detections", "degenerate"}:
+    "sections", "detections", "degenerate", "fetch_waited", "spans"}:
     ``frustums`` counts the real frustums streamed here, ``sections`` the
-    selected sections, ``detections`` those kept and ``degenerate`` those
-    dropped for a size under 1 cm."""
-    strict_fp32()
-    model.eval()
-    device = next(model.parameters()).device
-    group = max(int(group), 1)
-    infer_group = build_infer_group_flat_fn(model, spec)
-    pc, pi = mesh.process_count(), mesh.process_index()
-    loader = BatchLoader(dataset, batch_size, spec.num_scales, shuffle=False,
-                         drop_last=False, pad_last=True, seed=0,
-                         num_workers=num_workers,
-                         batch_shard=(pi, pc) if pc > 1 else None)
-    num_batches = len(range(pi, len(loader), pc))
-    det_results: dict = {}
-    counts = {"sections": 0, "detections": 0, "degenerate": 0}
+    selected sections, ``detections`` those kept, ``degenerate`` those
+    dropped for a size under 1 cm, ``fetch_waited`` the groups whose
+    outputs were not back yet when fetched (0 off a card) and ``spans`` the
+    host time of the call's parts, ``serve.*`` as ``run_test`` names
+    them."""
+    spans: dict = {}
+    with span("serve.call", spans):
+        with span("serve.start", spans):
+            strict_fp32()
+            model.eval()
+            device = next(model.parameters()).device
+            group = max(int(group), 1)
+            infer_group = build_infer_group_sun_fn(model, spec, method)
+            pc, pi = mesh.process_count(), mesh.process_index()
+            loader = BatchLoader(dataset, batch_size, spec.num_scales, shuffle=False,
+                                 drop_last=False, pad_last=True, seed=0,
+                                 num_workers=num_workers,
+                                 batch_shard=(pi, pc) if pc > 1 else None)
+        num_groups = (len(range(pi, len(loader), pc)) + group - 1) // group
+        det_results: dict = {}
+        counts = {"sections": 0, "detections": 0, "degenerate": 0}
 
-    def upload(x, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        return (t if dtype is None else t.to(dtype)).to(device)
+        def upload(x, dtype=None):
+            return upload_tensor(torch.from_numpy(np.ascontiguousarray(x)), device, dtype)
 
-    def dispatch(batches):
-        """<= group host batches -> one stacked forward (the tail pads by
-        repeating its last batch)."""
-        if len(batches) < group:
-            batches = batches + [batches[-1]] * (group - len(batches))
-        pts = upload(np.stack([b["point_cloud"] for b in batches]), points_dtype)
-        one_hot = upload(np.stack([b["one_hot"] for b in batches]))
-        refs = [upload(np.stack([b["refs"][i] for b in batches]))
-                for i in range(spec.num_scales)]
-        return infer_group(pts, one_hot, refs)
+        def upload_group(batches) -> tuple:
+            return (upload(np.stack([b["point_cloud"] for b in batches]), points_dtype),
+                    upload(np.stack([b["one_hot"] for b in batches])),
+                    *(upload(np.stack([b["refs"][i] for b in batches]))
+                      for i in range(spec.num_scales)))
 
-    def process_one(out, batch):
-        idxs = [int(i) for i in batch["_indices"][:int(batch["_real"])]]
-        rgb_probs = batch.get("rgb_prob", np.ones(batch_size, np.float32)).reshape(-1)
-        rot_angles = batch["rot_angle"].reshape(-1)
-        for k, gi in enumerate(idxs):
-            fg_idx = select_sections(out["cls_probs"][k], method)
-            scores = rgb_probs[k] + out["size_probs"][k][fg_idx].max(axis=1)
-            data_idx = int(dataset.data["id"][gi])
-            class_type = dataset.data["type"][gi]
-            box2d = np.asarray(dataset.data["box2d"][gi])
-            per_cls = det_results.setdefault(data_idx, {}).setdefault(class_type, [])
-            counts["sections"] += fg_idx.size
-            for m, s in zip(fg_idx, scores):
-                tx, ty, tz, l, w, h, ry = from_prediction_to_label_format(
-                    out["centers"][k][m], out["headings"][k][m],
-                    out["sizes"][k][m], rot_angles[k])
-                if h < 0.01 or w < 0.01 or l < 0.01:
-                    counts["degenerate"] += 1
-                    continue
-                counts["detections"] += 1
-                per_cls.append([box2d[0], box2d[1], box2d[2], box2d[3],
-                                tx, ty, tz, l, w, h, ry, float(s)])
+        def postprocess(host, g, batch) -> None:
+            packed_g, cnt_g = host
+            postprocess_packed_sun(packed_g[g], cnt_g[g], batch, dataset, det_results, counts)
 
-    def process(out_dev, batches):
-        out = {k: v.cpu().numpy() for k, v in out_dev.items()}  # waits for it
-        for j, batch in enumerate(batches):  # padded replicas are not listed
-            process_one({k: v[j] for k, v in out.items()}, batch)
-
-    t_start = time.time()
-    pending: deque = deque()
-    acc: list = []
-    n = 0
-    for bi, batch in enumerate(loader.epoch(0)):
-        n += int(batch["_real"])
-        acc.append(batch)
-        if len(acc) == group:
-            pending.append((dispatch(acc), acc))
-            acc = []
-            while len(pending) >= max(inflight, 1):
-                process(*pending.popleft())
-        if (bi + 1) % (20 * group) == 0:
-            rate = (bi + 1) * batch_size / (time.time() - t_start)
-            logger.info(f"batch {bi + 1}/{num_batches}  {rate:.0f} frustums/s")
-    if acc:
-        pending.append((dispatch(acc), acc))
-    while pending:
-        process(*pending.popleft())
-    elapsed = time.time() - t_start
-    where = f" on rank {pi} of {pc}" if pc > 1 else ""
-    logger.info(f"streamed {n} frustums{where} in {elapsed:.2f}s = "
-                f"{n / elapsed:.0f} frustums/s end-to-end ({counts['sections']} "
-                f"selected sections, {counts['detections']} detections, "
-                f"{counts['degenerate']} degenerate)")
-    stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
-             **counts}
-    if pc > 1:  # one collective merges the ranks' detection dicts
-        det_results = mesh.allgather_detections(det_results)
+        t_start = time.time()
+        streamed = stream_groups(loader.epoch(0), group, inflight, device, spans,
+                                 upload_group, infer_group, postprocess,
+                                 pad_tail=True, logger=logger, num_groups=num_groups)
+        n = streamed["frustums"]
+        elapsed = time.time() - t_start
+        where = f" on rank {pi} of {pc}" if pc > 1 else ""
+        logger.info(f"streamed {n} frustums{where} in {elapsed:.2f}s = "
+                    f"{n / elapsed:.0f} frustums/s end-to-end ({counts['sections']} "
+                    f"selected sections, {counts['detections']} detections, "
+                    f"{counts['degenerate']} degenerate)")
+        stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
+                 **counts, "fetch_waited": streamed["fetch_waited"]}
+        if pc > 1:  # one collective merges the ranks' detection dicts
+            det_results = mesh.allgather_detections(det_results)
+    stats["spans"] = spans
     return det_results, stats
 
 
