@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
 
 1. device: a CUDA card must be visible; prints its name and power limit;
-2. build: compiles ``frustum_convnet_tpu_torch/csrc/group_depth_point.cu``;
+2. build: compiles ``frustum_convnet_tpu_torch/csrc/group_depth_point.cu``
+   and ``csrc/pointnet_epilogue.cu``;
 3. kernel: the CUDA grouping kernel against its plain PyTorch version on the
    card, bit for bit (grouped and cnt), at the flagship shapes (B=32, 64,
    256 and 1024: the trainer's batch, the serving group's, the timed one
@@ -25,7 +26,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    of 4300 frustums (TEST.BATCH_SIZE 32, TPU.INFER_GROUP 2, weights from a
    ``.pth``); requires the native NMS and evaluator (``make -C native``) to
    have built, checks the result files, the detections, the evaluator's AP
-   and that the main path launched the kernel; prints the frustums/s;
+   and that the main path launched the kernel, and the fused epilogue
+   once a PointNet layer a forward (8 and 4); prints the frustums/s;
 6. modes: the single-scale grouping (kernel 2) and the select alone
    (kernel 3) against their plain versions on the card, bit for bit
    (grouped, idx and cnt), at the flagship shapes (B=32, the profiler's
@@ -36,6 +38,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    row); both timed with their plain versions at B=256 on scales 1
    (M=280, K=32) and 4 (M=35, K=128), and kernel 3 at B=32 on scale 1, in
    turns (plain, kernel, kernel, plain), each beside its bound and share;
+   then the fused PointNet eval epilogue (``bn_relu_cuda_`` and
+   ``bn_relu_mask_maxpool_cuda``) against its plain versions, bit for bit,
+   at every car layer's (M, K, C) at B=64 (phase 5's forward) and 256,
+   with kernel 1's section counts plus empty sections, and NaNs;
+   timed at B=256 in turns beside its HBM bound (``phase_epilogue``);
 7. profiler: ``frustum_convnet_tpu_torch.tools.profile_stages.main`` at
    batch 32, which must launch all three kernels; prints its stage lines;
 8. train step: one step of the flagship model at batch 8 of the synthetic
@@ -171,7 +178,8 @@ with the port's generators and run the port's prep on them.
 
 Each kernel's ``launches`` in the kernels record is counted over one main
 path, with the counts set to 0 just before it: kernel 1 over the trainer's
-run (phase 9), kernels 2 and 3 over the profiler's (phase 7).
+run (phase 9), kernels 2 and 3 over the profiler's (phase 7), the fused
+epilogue's two entry points over the serving run (phase 5).
 ``path_launches`` gives each kernel's launches on every driver path, each
 counted the same way: serving and training (phases 5 and 9), the refine
 cascade's stage-1 serving, training and serving (phase 10), and SUN-RGBD
@@ -182,13 +190,16 @@ runner (phase 15), world-1 training and both world-1 servings and the
 2-rank training (8 steps) and serving, both ranks' launches (phase 16),
 ``entry()``, every rank of the dry-run and both ``profile_train``
 runs (phase 17), and the bench, ``bench_models`` and ``bench_driver``
-(phase 18); only kernel 1 runs there.
-``main_path_launches`` is their sum. Kernel 1's ``family_shapes`` holds its
+(phase 18); kernels 2 and 3 run on none of them, the epilogue on every
+float32 eval forward; the dry-run's child ranks report kernel 1 alone
+(null for the other kernels). ``main_path_launches`` is their sum. Kernel 1's ``family_shapes`` holds its
 phase-12 numbers. Launches that compare a kernel with its plain version are
 not counted. ``bound_ms`` is
 the least time the card could take for the timed call (its bytes over the
 HBM rate or its float32 operations over the float32 instruction rate,
-whichever is larger); ``library_ms`` is null: no single PyTorch call computes this select.
+whichever is larger; the epilogue's: its bytes, summed over a car forward's
+launches at B=256); ``library_ms`` is null: no single PyTorch call computes
+this select or this epilogue.
 The run fails if any module of the JAX package (or jax) was imported.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -307,8 +318,9 @@ def phase_modes(spec, device) -> dict:
     """Kernels 2 (one scale) and 3 (select only) against their plain
     versions, bit for bit, and kernel 2 against kernel 1 per scale, on the
     edge cases and at the flagship B=32 and 256; timed at
-    B=256 on scales 1 and 4. Returns their kernels-record numbers (times of
-    scale 1, M=280, K=32)."""
+    B=256 on scales 1 and 4; then the fused epilogue (``phase_epilogue``).
+    Returns their kernels-record numbers (kernels 2 and 3: times of scale
+    1, M=280, K=32)."""
     from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
     from frustum_convnet_tpu_torch.ops import query_depth_point as qdp
     from frustum_convnet_tpu_torch.tools.time_grouping import kernel_bound
@@ -384,15 +396,96 @@ def phase_modes(spec, device) -> dict:
             if (batch, i) == (256, 0):
                 out[name] = {"max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+    out.update(phase_epilogue(spec, device))
+    return out
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, NaN at the same places, ``torch.equal`` elsewhere."""
+    nan = a.isnan()
+    return (a.shape == b.shape and torch.equal(nan, b.isnan())
+            and torch.equal(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0)))
+
+
+def phase_epilogue(spec, device) -> dict:
+    """The fused PointNet eval epilogue (``ops/pointnet_epilogue``) against
+    its plain versions, bit for bit, at every (M, K, C) the car serving path
+    gives it: at phase 5's forward batch (B=64, groups of 2 batches of 32)
+    and at the serving cells' (B=256), with the section counts kernel 1
+    gives on the flagship case, with empty sections added (one frustum
+    whole, every fifth of another), a NaN in a served section and in an
+    empty one, and an eval BatchNorm with non-trivial statistics. Timed at B=256 beside the
+    plain versions and the HBM bound (``profile_mlp.fused_bytes`` over
+    3.35 TB/s). Returns each kernel's kernels-record numbers: the sums over
+    one car forward's launches at B=256 (8 of ``bn_relu``, 4 of the pool)."""
+    from frustum_convnet_tpu_torch.ops import grouping_cases, select_cuda
+    from frustum_convnet_tpu_torch.ops import pointnet_epilogue as epi
+    from frustum_convnet_tpu_torch.tools.profile_mlp import (HBM_BYTES_PER_S, eval_bn,
+                                                             fused_bytes)
+
+    gen = torch.Generator(device).manual_seed(SMOKE_SEED)
+    out = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "hbm"}
+           for name in ("bn_relu", "bn_relu_mask_maxpool")}
+    checked = 0
+    with torch.inference_mode():
+        for batch in (64, 256):
+            pts, refs, dzs, ks = grouping_cases.flagship_case(spec, batch=batch)
+            grouped = select_cuda.group_depth_point_multi_cuda(
+                torch.from_numpy(pts).to(device), [torch.from_numpy(r).to(device) for r in refs],
+                dzs, ks)
+            for si, ((_, cnt), mlp, k) in enumerate(zip(grouped, spec.mlps, ks)):
+                b, m = cnt.shape
+                cnt = cnt.clone()  # kernel 1's, with empty sections added
+                cnt[-1] = 0  # a frustum with no point in any window
+                cnt[0, ::5] = 0
+                for li, c in enumerate(mlp):
+                    name = "bn_relu_mask_maxpool" if li == len(mlp) - 1 else "bn_relu"
+                    y = torch.randn((b, m, k, c), generator=gen, device=device)
+                    y[0, 1, k - 1, 1] = float("nan")  # a served section
+                    y[-1, 0, 0, 0] = float("nan")  # an empty one
+                    bn = eval_bn(c, gen, device)
+                    if name == "bn_relu":
+                        kernel = lambda: epi.bn_relu_cuda_(y, bn)
+                        plain = lambda: epi.bn_relu_plain(y, bn)
+                        same = _bit_equal(epi.bn_relu_cuda_(y.clone(), bn), plain())
+                    else:
+                        kernel = lambda: epi.bn_relu_mask_maxpool_cuda(y, cnt, bn)
+                        plain = lambda: epi.bn_relu_mask_maxpool_plain(y, cnt, bn)
+                        same = _bit_equal(kernel(), plain())
+                    if not same:
+                        raise AssertionError(f"[epilogue] {name} != plain version at B={batch}, "
+                                             f"scale {si + 1} (M={m}, K={k}, C={c})")
+                    checked += 1
+                    if batch != 256:
+                        continue
+                    bound_ms = fused_bytes(y, cnt if name != "bn_relu" else None) / (
+                        HBM_BYTES_PER_S / 1e3)
+                    ms, plain_ms, (k1, k2, p1, p2) = _in_turns(kernel, plain)
+                    print(f"[epilogue] {name} scale {si + 1} layer {li + 1} (M={m}, K={k}, "
+                          f"C={c}) B=256: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+                          f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); bound {bound_ms:.4f} ms "
+                          f"(hbm), share {bound_ms / ms:.1%}")
+                    rec = out[name]
+                    rec["ms"] += ms
+                    rec["plain_ms"] += plain_ms
+                    rec["bound_ms"] += bound_ms
+    print(f"[epilogue] both entry points bit-identical to their plain versions at "
+          f"{checked} (B, M, K, C) of the car's layers (B=64 and 256, empty sections, "
+          f"NaNs); a car forward at B=256: "
+          + "; ".join(f"{n} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%})"
+                      for n, r in out.items()))
     return out
 
 
 def _counters():
-    from frustum_convnet_tpu_torch.ops import select_cuda
+    from frustum_convnet_tpu_torch.ops import pointnet_epilogue, select_cuda
 
     return {"group_depth_point_multi": select_cuda.group_depth_point_multi_cuda,
             "group_depth_point": select_cuda.group_depth_point_cuda,
-            "query_depth_point": select_cuda.query_depth_point_cuda}
+            "query_depth_point": select_cuda.query_depth_point_cuda,
+            "bn_relu": pointnet_epilogue.bn_relu_cuda_,
+            "bn_relu_mask_maxpool": pointnet_epilogue.bn_relu_mask_maxpool_cuda}
 
 
 def _reset_counts() -> None:
@@ -402,6 +495,10 @@ def _reset_counts() -> None:
 
 def _counts() -> dict:
     return {name: c.launches for name, c in _counters().items()}
+
+
+def _sum_counts(*counts: dict) -> dict:
+    return {name: sum(c.get(name, 0) for c in counts) for name in _counters()}
 
 
 def phase_profiler() -> tuple:
@@ -725,9 +822,18 @@ def phase_driver(model, split: dict, work: str, opts=(), tag: str = "driver",
         raise AssertionError(f"the evaluator returned {ap!r}")
     if launches <= 0:
         raise AssertionError("the driver's run never launched the CUDA kernel")
+    # one forward a kernel-1 launch; in float32 each runs the fused epilogue
+    # once a PointNet layer, the last of each scale with the mask and pool
+    f32 = "TPU.INFER_DTYPE" not in opts or "float32" in opts
+    fused = {"bn_relu": launches * sum(len(m) - 1 for m in model.spec.mlps) * f32,
+             "bn_relu_mask_maxpool": launches * model.spec.num_scales * f32}
+    if {k: counts[k] for k in fused} != fused:
+        raise AssertionError(f"[{tag}] epilogue launches {counts} for {launches} "
+                             f"forwards, expected {fused}")
     expected = n_batches // 2 + 1 + stats["overflow_reruns"]
     print(f"[{tag}] {stats['frustums']} frustums, {n_batches} batches of 32 in "
           f"groups of 2: {launches} kernel launches (expected {expected}), "
+          f"epilogue launches {fused}, "
           f"{stats['sections']} foreground sections "
           f"({stats['sections'] / stats['frustums']:.3f} a frustum), "
           f"{stats['detections']} detections "
@@ -913,8 +1019,8 @@ def phase_trainer(spec, device, work: str, pickle_dir: str) -> dict:
 def _train_family(tag: str, cfg_file: str, args: list, val_ds) -> dict:
     """``engine.train.main`` for 2 epochs at batch 32 on the card; checks
     finite logged losses, a kernel-1 launch on every train and eval step
-    and ``model_final.pth``. Returns its launches, the steady epoch's stats
-    and the checkpoint."""
+    and ``model_final.pth``. Returns its kernel-1 launches, every kernel's
+    (``counts``), the steady epoch's stats and the checkpoint."""
     import math
 
     from frustum_convnet_tpu_torch.engine import checkpoints
@@ -926,7 +1032,8 @@ def _train_family(tag: str, cfg_file: str, args: list, val_ds) -> dict:
                        + args + ["TRAIN.BATCH_SIZE", "32", "TEST.BATCH_SIZE", "32",
                                  "TRAIN.MAX_EPOCH", "2", "disp", "4",
                                  "USE_TFBOARD", "False"])
-    launches = _counts()["group_depth_point_multi"]
+    counts = _counts()
+    launches = counts["group_depth_point_multi"]
     steps = [e["steps"] for e in res["epochs"]]
     evals = 2 * math.ceil(len(val_ds) / 32)
     if len(steps) != 2 or min(steps) < 4:
@@ -947,7 +1054,7 @@ def _train_family(tag: str, cfg_file: str, args: list, val_ds) -> dict:
     print(f"[{tag}] trainer steady epoch (epoch 1): {steady['ms_per_step']:.3f} ms/step, "
           f"{steady['frustums_per_s']:.1f} frustums/s over {steady['seconds']:.3f}s "
           f"(CUDA events); epoch 0 {res['epochs'][0]['ms_per_step']:.3f} ms/step")
-    return {"launches": launches, "steady": steady, "final": final}
+    return {"launches": launches, "counts": counts, "steady": steady, "final": final}
 
 
 def _serve_kitti(tag: str, cfg_file: str, raw: str, args: list, group: int = 2,
@@ -964,7 +1071,8 @@ def _serve_kitti(tag: str, cfg_file: str, raw: str, args: list, group: int = 2,
                        "--gt_dir", os.path.join(raw, "training", "label_2"),
                        "--idx_path", idx_path] + args
                       + ["TEST.BATCH_SIZE", "32", "TPU.INFER_GROUP", str(group)])
-    launches = _counts()["group_depth_point_multi"]
+    counts = _counts()
+    launches = counts["group_depth_point_multi"]
     stats = out["stats"]
     n_batches = -(-stats["frustums"] // 32)
     forwards = n_batches // group + n_batches % group + stats["overflow_reruns"]
@@ -991,7 +1099,8 @@ def _serve_kitti(tag: str, cfg_file: str, raw: str, args: list, group: int = 2,
           + "; ".join(f"{c} AP 3D {ap[c]['detection_3d']}" for c in classes))
     print(f"[{tag}] serving: end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
           f"{stats['seconds']:.2f}s")
-    return {"launches": launches, "stats": stats, "result_dir": out["result_dir"]}
+    return {"launches": launches, "counts": counts, "stats": stats,
+            "result_dir": out["result_dir"]}
 
 
 def phase_refine(work: str, stage1_weights: str, num_frames: int = 64) -> dict:
@@ -999,7 +1108,7 @@ def phase_refine(work: str, stage1_weights: str, num_frames: int = 64) -> dict:
     (``scripts/car_all.sh`` after stage-1 training, which phase 9 did):
     a synthetic raw KITTI, the stage-1 prep, stage-1 serving with phase 9's
     weights, the refine prep on its results, then ``cfgs/refine_car.yaml``
-    trained at full width and served. Returns kernel-1 launches a path."""
+    trained at full width and served. Returns every kernel's launches a path."""
     from frustum_convnet_tpu_torch.data.kitti import prepare, prepare_refine
     from frustum_convnet_tpu_torch.data.kitti.synthetic import make_synthetic_kitti
     from frustum_convnet_tpu_torch.data.provider_refine import FrustumRefineProvider
@@ -1033,8 +1142,8 @@ def phase_refine(work: str, stage1_weights: str, num_frames: int = 64) -> dict:
                           FrustumRefineProvider(cfg, "val"))
     serve = _serve_kitti("refine", "refine_car.yaml", raw,
                          args + ["TEST.WEIGHTS", train["final"]])
-    return {"refine_stage1_serving": stage1["launches"],
-            "refine_training": train["launches"], "refine_serving": serve["launches"]}
+    return {"refine_stage1_serving": stage1["counts"],
+            "refine_training": train["counts"], "refine_serving": serve["counts"]}
 
 
 def phase_people(work: str, num_frames: int = 64) -> dict:
@@ -1043,7 +1152,7 @@ def phase_people(work: str, num_frames: int = 64) -> dict:
     prep (``--people_only``), ``cfgs/det_sample_people.yaml`` at full width
     (N=1024, 700/350/175/88 = 1313 sections) trained 2 epochs at batch 32 and
     served, the refine prep on its results, then ``cfgs/refine_people.yaml``
-    (N=512) trained 2 epochs and served. Returns kernel-1 launches a path."""
+    (N=512) trained 2 epochs and served. Returns every kernel's launches a path."""
     from frustum_convnet_tpu_torch import configs
     from frustum_convnet_tpu_torch.data.kitti import prepare, prepare_refine
     from frustum_convnet_tpu_torch.data.kitti.synthetic import make_synthetic_kitti
@@ -1082,9 +1191,9 @@ def phase_people(work: str, num_frames: int = 64) -> dict:
                            FrustumRefineProvider(rcfg, "val"))
     served = _serve_kitti("refine people", "refine_people.yaml", raw,
                           args + ["TEST.WEIGHTS", refine["final"]], classes=classes)
-    return {"people_training": train["launches"], "people_serving": stage1["launches"],
-            "refine_people_training": refine["launches"],
-            "refine_people_serving": served["launches"]}
+    return {"people_training": train["counts"], "people_serving": stage1["counts"],
+            "refine_people_training": refine["counts"],
+            "refine_people_serving": served["counts"]}
 
 
 # the summary keys of tools/run_synth_protocol.py:120-131 and
@@ -1103,7 +1212,7 @@ def phase_runners(work: str, frames: int = 128) -> dict:
     ``run_refine_protocol.main`` on its output. Checks each
     ``PROTOCOL_RESULT`` (the JAX tools' keys, finite Car APs, the same
     ``protocol_result.json``) and a kernel-1 launch on every train, eval and
-    serving forward. Returns kernel-1 launches a runner."""
+    serving forward. Returns every kernel's launches a runner."""
     import math
 
     from frustum_convnet_tpu_torch.data.provider import FrustumProvider
@@ -1123,7 +1232,8 @@ def phase_runners(work: str, frames: int = 128) -> dict:
         t0 = time.time()
         summary = runner.main(common + args)
         seconds = time.time() - t0
-        launches = _counts()["group_depth_point_multi"]
+        counts = _counts()
+        launches = counts["group_depth_point_multi"]
         pickles = (run_synth_protocol.build_dataset(frames, 2, cache, 1)[1]  # cached
                    if stage == "stage1" else
                    os.path.join(cache, "refine_pickles_run_float32_1ep"))
@@ -1145,7 +1255,7 @@ def phase_runners(work: str, frames: int = 128) -> dict:
         print(f"[runners] {stage}: PROTOCOL_RESULT {json.dumps(summary)}")
         print(f"[runners] {stage}: {launches} kernel launches (at least {forwards} "
               f"forwards), {seconds:.1f}s with the prep")
-        out[f"runner_{stage}"] = launches
+        out[f"runner_{stage}"] = counts
     return out
 
 
@@ -1154,7 +1264,7 @@ def phase_sunrgbd(work: str, num_frames: int = 64) -> dict:
     prep, ``cfgs/det_sample_sunrgbd.yaml`` trained at full width (N=2048, 5
     scales, K up to 256) and served by ``engine.test_sunrgbd`` ('top': one
     detection a frustum that survives the degenerate-size filter), then VOC
-    AP. Returns kernel-1 launches a path."""
+    AP. Returns every kernel's launches a path."""
     from frustum_convnet_tpu_torch.data.provider_sunrgbd import FrustumSunrgbdProvider
     from frustum_convnet_tpu_torch.data.sunrgbd import prepare
     from frustum_convnet_tpu_torch.data.sunrgbd.synthetic import make_synthetic_sunrgbd
@@ -1185,7 +1295,8 @@ def phase_sunrgbd(work: str, num_frames: int = 64) -> dict:
                              "--val_idx", os.path.join(sets, "val.txt")] + args
                             + ["TEST.WEIGHTS", train["final"], "TEST.BATCH_SIZE", "32",
                                "TPU.INFER_GROUP", str(group)])
-    launches = _counts()["group_depth_point_multi"]
+    counts = _counts()
+    launches = counts["group_depth_point_multi"]
     stats, aps = out["stats"], out["ap"]
     n_batches = -(-stats["frustums"] // 32)
     forwards = -(-n_batches // group)  # the tail group is padded to a full one
@@ -1205,7 +1316,7 @@ def phase_sunrgbd(work: str, num_frames: int = 64) -> dict:
           f"mAP {written['mAP']:.4f} over {len(aps)} classes; sunrgbd_ap.json written")
     print(f"[sunrgbd] serving: end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
           f"{stats['seconds']:.2f}s")
-    return {"sunrgbd_training": train["launches"], "sunrgbd_serving": launches}
+    return {"sunrgbd_training": train["counts"], "sunrgbd_serving": counts}
 
 
 def phase_families(device, work: str) -> dict:
@@ -1442,7 +1553,7 @@ def phase_precision_trainer(work: str, pickle_dir: str, ap_f32, model, split) ->
     for 2 epochs of 32 steps, and float16 with TPU.F32_FINETUNE_EPOCHS 1
     over 3 epochs (the switch logged at epoch 2); then ``engine.test.main``
     at TPU.INFER_DTYPE bfloat16 on phase 5's split, its AP beside float32's.
-    Returns kernel 1's launches on each of these paths."""
+    Returns every kernel's launches on each of these paths."""
     from frustum_convnet_tpu_torch.engine import train as trainer
 
     paths = {}
@@ -1457,11 +1568,12 @@ def phase_precision_trainer(work: str, pickle_dir: str, ap_f32, model, split) ->
                             "OUTPUT_DIR", out_dir, "TRAIN.BATCH_SIZE", "32",
                             "TEST.BATCH_SIZE", "32", "disp", "8", "USE_TFBOARD", "False",
                             "TRAIN.MAX_EPOCH", str(epochs), *opts])
-        paths[tag] = _counts()["group_depth_point_multi"]
+        paths[tag] = _counts()
+        launches = paths[tag]["group_depth_point_multi"]
         steps = sum(e["steps"] for e in res["epochs"])
         losses = _logged_losses(os.path.join(out_dir, "train.log"))
-        if steps != 32 * epochs or paths[tag] < steps or not np.isfinite(losses).all():
-            raise AssertionError(f"[precision] {tag}: {steps} steps, {paths[tag]} kernel "
+        if steps != 32 * epochs or launches < steps or not np.isfinite(losses).all():
+            raise AssertionError(f"[precision] {tag}: {steps} steps, {launches} kernel "
                                  f"launches, losses {losses[:16]}")
         dtypes = [e["dtype"] for e in res["epochs"]]
         with open(os.path.join(out_dir, "train.log")) as f:
@@ -1474,11 +1586,11 @@ def phase_precision_trainer(work: str, pickle_dir: str, ap_f32, model, split) ->
             print(f"[precision] {tag} epoch {e['epoch']} ({e['dtype']}): "
                   f"{e['ms_per_step']:.3f} ms/step, {e['frustums_per_s']:.1f} frustums/s "
                   f"(CUDA events); IoU_0.7 {e['prec']:.4f}")
-        print(f"[precision] {tag}: {paths[tag]} kernel launches, {len(losses)} logged "
+        print(f"[precision] {tag}: {launches} kernel launches, {len(losses)} logged "
               f"losses, all finite{'; the float32 switch logged at epoch 2' if switched else ''}")
     served = phase_driver(model, split, work, opts=["TPU.INFER_DTYPE", "bfloat16"],
                           tag="precision serving bfloat16")
-    paths["serving_bf16"] = served["counts"]["group_depth_point_multi"]
+    paths["serving_bf16"] = served["counts"]
     for key in ("detection", "detection_3d"):
         print(f"[precision] serving car AP {key} (easy, moderate, hard): bfloat16 "
               f"{served['ap'][key]}, float32 (phase 5) {ap_f32[key]}")
@@ -1692,8 +1804,10 @@ def rank_main(job_path: str) -> int:
             _reset_counts()
             res = trainer.main(_dp_args(pickle_dir, f"{pickle_dir}_out{rank}"))
             epoch = res["epochs"][0]
+            counts = _counts()
             out["train"].append({
-                "launches": _counts()["group_depth_point_multi"], "backend": res["backend"],
+                "launches": counts["group_depth_point_multi"], "counts": counts,
+                "backend": res["backend"],
                 "steps": epoch["steps"], "ms_per_step": epoch["ms_per_step"],
                 "val": epoch["val"], "train": epoch["train"],
                 "state": {k: v.cpu() for k, v in res["state"].model.state_dict().items()}})
@@ -1701,7 +1815,8 @@ def rank_main(job_path: str) -> int:
         if "serve" in job:
             _reset_counts()
             served = driver.main(job["serve"] + ["OUTPUT_DIR", f"{job['out']}_serve{rank}"])
-            out["serve"] = {"launches": _counts()["group_depth_point_multi"],
+            counts = _counts()
+            out["serve"] = {"launches": counts["group_depth_point_multi"], "counts": counts,
                             "stats": served["stats"], "result_dir": served["result_dir"],
                             "ap": served["ap"]}
     finally:
@@ -1814,7 +1929,7 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
     phase 5's split
     served on both ranks in groups of one batch with one process's files and
     AP; NCCL refuses two ranks on
-    the card. Returns kernel 1's launches on each path."""
+    the card. Returns every kernel's launches on each path."""
     import math
 
     from frustum_convnet_tpu_torch.engine import checkpoints
@@ -1835,7 +1950,7 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
     with _Group():
         _reset_counts()
         res = trainer.main(args + ["OUTPUT_DIR", out_dir])
-        paths["dp_world1_training"] = _counts()["group_depth_point_multi"]
+        paths["dp_world1_training"] = _counts()
     collectives = mesh.all_reduce.calls - calls
     _, val_ds = trainer.make_datasets(flagship_cfg(train_dir))
     steps = sum(e["steps"] for e in res["epochs"])
@@ -1844,9 +1959,9 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
     if (res["backend"], res["world"]) != ("nccl", 1) or mesh.initialized():
         raise AssertionError(f"[data parallel] world-1 group: {res['backend']}, "
                              f"world {res['world']}, left up {mesh.initialized()}")
-    if steps != 64 or paths["dp_world1_training"] < steps + evals:
+    if steps != 64 or paths["dp_world1_training"]["group_depth_point_multi"] < steps + evals:
         raise AssertionError(f"[data parallel] {steps} steps, "
-                             f"{paths['dp_world1_training']} kernel launches")
+                             f"{paths['dp_world1_training']} launches")
     if collectives < 2 * steps or len(losses) < 64 or not np.isfinite(losses).all():
         raise AssertionError(f"[data parallel] {collectives} NCCL all-reduces, "
                              f"losses {losses[:16]}")
@@ -1861,7 +1976,8 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
     worst0, rel0 = _param_distance(repeat, plain)
     steady = res["epochs"][1]
     print(f"[data parallel] world 1 over NCCL, trainer 2 epochs of 32 steps at batch 32 "
-          f"and {evals} eval batches: {paths['dp_world1_training']} kernel launches, "
+          f"and {evals} eval batches: "
+          f"{paths['dp_world1_training']['group_depth_point_multi']} kernel launches, "
           f"{collectives} NCCL all-reduces ({collectives / (steps + evals):.1f} a step), "
           f"{len(losses)} logged losses, all finite")
     print(f"[data parallel] {card}: world-1 group steady {steady['ms_per_step']:.3f} ms/step, "
@@ -1881,8 +1997,8 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
     with _Group():
         same = phase_driver(model, split, work, tag="dp world-1 serving phase-5 weights",
                             weights_name="dp1_phase5.pth")
-    paths["dp_world1_serving"] = trained_serving["counts"]["group_depth_point_multi"]
-    paths["dp_world1_serving_phase5_weights"] = same["counts"]["group_depth_point_multi"]
+    paths["dp_world1_serving"] = trained_serving["counts"]
+    paths["dp_world1_serving_phase5_weights"] = same["counts"]
     n_lines, n_same = same_results(same["result_dir"], served["result_dir"], "data parallel")
     if same["ap"] != served["ap"]:
         raise AssertionError(f"[data parallel] world-1 AP {same['ap']} vs {served['ap']}")
@@ -1919,7 +2035,6 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
             del res
     finally:
         trainer.make_datasets = trainer_make
-    paths["dp_2rank_training"] = 0
     for i, (n, d) in enumerate(zip(DP_STEPS, runs)):
         t0, t1 = (r["train"][i] for r in ranks)
         if any(not torch.equal(v, t1["state"][k]) for k, v in t0["state"].items()):
@@ -1938,7 +2053,7 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
         if not os.path.exists(os.path.join(f"{d}_out0", "train.log")) or os.path.exists(f"{d}_out1"):
             raise AssertionError(f"[data parallel] {n} steps: not only the chief wrote")
         if n == max(DP_STEPS):
-            paths["dp_2rank_training"] = t0["launches"] + t1["launches"]
+            paths["dp_2rank_training"] = _sum_counts(t0["counts"], t1["counts"])
         print(f"[data parallel] 2 ranks over gloo, {n} steps at global batch 32: ranks "
               f"bitwise equal; against one process, step-1 losses and metrics within "
               f"{step1:.3e} (bound 1e-4), parameters max abs {worst:.3e} (bound "
@@ -1958,7 +2073,7 @@ def phase_data_parallel(spec, work: str, train_dir: str, model, split, served: d
                                    "data parallel 2 ranks")
     if s0["ap"] != one["ap"]:
         raise AssertionError(f"[data parallel] 2-rank AP {s0['ap']} vs {one['ap']}")
-    paths["dp_2rank_serving"] = s0["launches"] + s1["launches"]
+    paths["dp_2rank_serving"] = _sum_counts(s0["counts"], s1["counts"])
     print(f"[data parallel] 2 ranks serving phase 5's split in groups of one batch: "
           f"{s0['stats']['frustums']} + {s1['stats']['frustums']} frustums, "
           f"{s0['launches']} + {s1['launches']} kernel launches; {n_lines} result lines "
@@ -2062,8 +2177,9 @@ def phase_entry_points(device, card: str) -> dict:
     on every forward; (c) the device NMS (``phase_device_nms``); (d)
     ``tools.profile_train`` at batch 32 in float32 and bfloat16, finite
     rows and kernel 1 on every timed call; (e) ``tools.profile_mlp`` at
-    batch 256. Returns kernel 1's launches on the entry, dry-run and
-    profiler paths."""
+    batch 256. Returns every kernel's launches on the entry and profiler
+    paths, and kernel 1's on the dry-run's (its child ranks report no
+    other)."""
     from frustum_convnet_tpu_torch import graft_entry
     from frustum_convnet_tpu_torch.tools import profile_mlp, profile_train
 
@@ -2073,7 +2189,7 @@ def phase_entry_points(device, card: str) -> dict:
     want = cpu_fn(*cpu_args)
     _reset_counts()
     got = fn(*args)
-    paths["entry"] = _counts()["group_depth_point_multi"]
+    paths["entry"] = _counts()
     worst = 0.0
     for k, w in want.items():
         g = got[k].cpu()
@@ -2081,8 +2197,8 @@ def phase_entry_points(device, card: str) -> dict:
             raise AssertionError(f"[entry points] entry() {k}: {tuple(g.shape)} or non-finite")
         torch.testing.assert_close(g, w, **MODEL_TOL)
         worst = max(worst, (g - w).abs().max().item())
-    if paths["entry"] != 1:
-        raise AssertionError(f"[entry points] entry() launched kernel 1 {paths['entry']} times")
+    if paths["entry"]["group_depth_point_multi"] != 1:
+        raise AssertionError(f"[entry points] entry() launched {paths['entry']}")
     print(f"[entry points] entry() on the card against the CPU: {len(want)} outputs, max abs "
           f"{worst:.3e} (atol/rtol 1e-4), 1 kernel-1 launch")
 
@@ -2097,13 +2213,14 @@ def phase_entry_points(device, card: str) -> dict:
 
     nms = phase_device_nms(device)
 
-    paths["profile_train"] = 0
+    paths["profile_train"] = {}
     train_rows = {}
     for dtype in ("float32", "bfloat16"):
         _reset_counts()
         res = profile_train.main(["--batch", "32", "--dtype", dtype])
-        launches = _counts()["group_depth_point_multi"]
-        paths["profile_train"] += launches
+        counts = _counts()
+        launches = counts["group_depth_point_multi"]
+        paths["profile_train"] = _sum_counts(paths["profile_train"], counts)
         if launches < res["forwards"] or not all(np.isfinite(v) for v in res["rows"].values()):
             raise AssertionError(f"[entry points] profile_train {dtype}: {launches} kernel-1 "
                                  f"launches for {res['forwards']} calls, rows {res['rows']}")
@@ -2145,7 +2262,7 @@ def phase_bench(card: str, work: str) -> dict:
     then ``tools.bench_models --only refine_people --batches 32 --iters 3``
     and ``tools.bench_driver`` on a 64-frame split at batch 4, ``--sweep
     8:2``, each rate finite and positive with kernel-1 launches. Returns
-    kernel 1's launches on the three paths and the bench's last line."""
+    every kernel's launches on the three paths and the bench's last line."""
     from frustum_convnet_tpu_torch import bench
     from frustum_convnet_tpu_torch.tools import bench_driver, bench_models
 
@@ -2154,7 +2271,7 @@ def phase_bench(card: str, work: str) -> dict:
     t0 = time.time()
     _reset_counts()
     res = bench.main(["--iters", "3", "--trials", "1"])
-    paths["bench"] = _counts()["group_depth_point_multi"]
+    paths["bench"] = _counts()
     blocks, result = res["blocks"], res["result"]
     bad = [line["block"] for line in blocks
            if not all(_positive(line[k])
@@ -2165,7 +2282,8 @@ def phase_bench(card: str, work: str) -> dict:
         raise AssertionError(f"[bench] {len(blocks)} blocks, skipped {result['skipped']}, "
                              f"not positive or no kernel-1 launch: {bad}")
     print(f"[bench] bench.main --iters 3 --trials 1 on {card}: {len(blocks)} blocks in "
-          f"{time.time() - t0:.1f}s, {paths['bench']} kernel-1 launches (fewest in a "
+          f"{time.time() - t0:.1f}s, {paths['bench']['group_depth_point_multi']} kernel-1 "
+          f"launches (fewest in a "
           f"block {min(line['launches'] for line in blocks)}); inference "
           f"{result['value']:.1f} frustums/s at batch {result['batch']}, train "
           f"{result['train_throughput']['value']:.1f}")
@@ -2173,25 +2291,27 @@ def phase_bench(card: str, work: str) -> dict:
     t0 = time.time()
     _reset_counts()
     rows = bench_models.main(["--only", "refine_people", "--batches", "32", "--iters", "3"])
-    paths["bench_models"] = _counts()["group_depth_point_multi"]
+    paths["bench_models"] = _counts()
     if (len(rows) != 1 or not all(_positive(r) for r in rows[0][2].values())
-            or paths["bench_models"] <= 0):
+            or paths["bench_models"]["group_depth_point_multi"] <= 0):
         raise AssertionError(f"[bench] bench_models: {rows}, "
-                             f"{paths['bench_models']} kernel-1 launches")
+                             f"{paths['bench_models']} launches")
     print(f"[bench] bench_models --only refine_people --batches 32 --iters 3 in "
-          f"{time.time() - t0:.1f}s, {paths['bench_models']} kernel-1 launches")
+          f"{time.time() - t0:.1f}s, {paths['bench_models']['group_depth_point_multi']} "
+          f"kernel-1 launches")
 
     t0 = time.time()
     _reset_counts()
     lines = bench_driver.main(["--frames", "64", "--batch", "4", "--sweep", "8:2",
                                "--cache", os.path.join(work, "bench_driver")])
-    paths["bench_driver"] = _counts()["group_depth_point_multi"]
+    paths["bench_driver"] = _counts()
     keys = ("frustums", "frustums_per_s", "launches")
     if (len(lines) != 1 or not all(_positive(lines[0][k]) for k in keys)
             or lines[0]["spans"]["serve.dispatch"]["n"] < 1):
         raise AssertionError(f"[bench] bench_driver: {lines}")
     print(f"[bench] bench_driver --frames 64 --batch 4 --sweep 8:2 in "
-          f"{time.time() - t0:.1f}s, {paths['bench_driver']} kernel-1 launches")
+          f"{time.time() - t0:.1f}s, {paths['bench_driver']['group_depth_point_multi']} "
+          f"kernel-1 launches")
     return {"paths": paths, "bench": result}
 
 
@@ -2244,7 +2364,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from frustum_convnet_tpu_torch import configs
     from frustum_convnet_tpu_torch.engine import test as driver
-    from frustum_convnet_tpu_torch.ops import _build, select_cuda
+    from frustum_convnet_tpu_torch.ops import _build, pointnet_epilogue, select_cuda
 
     # 1. device
     device = torch.device("cuda", 0)
@@ -2260,9 +2380,13 @@ def main() -> int:
     t0 = time.time()
     _build.load_library("group_depth_point")
     print(f"[build] group_depth_point.cu ready in {time.time() - t0:.1f}s")
-    for line in _build.build_logs.get("group_depth_point", "").splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    t0 = time.time()
+    _build.load_library("pointnet_epilogue")
+    print(f"[build] pointnet_epilogue.cu ready in {time.time() - t0:.1f}s")
+    for name in ("group_depth_point", "pointnet_epilogue"):
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"[build] {line.strip()}")
 
     # 3. kernel against the plain version
     spec = configs.get_model_spec(flagship_cfg())
@@ -2282,7 +2406,7 @@ def main() -> int:
         served = phase_driver(model, split, work)
         serve_counts = served["counts"]
         print(f"[driver] kernel launches on the serving path: {serve_counts}")
-        # 6. kernels 2 and 3 against their plain versions
+        # 6. kernels 2 and 3 and the fused epilogue against their plain versions
         modes = phase_modes(spec, device)
         # 7. the stage profiler, which runs kernels 1, 2 and 3
         prof_launches, prof_times = phase_profiler()
@@ -2328,27 +2452,34 @@ def main() -> int:
                     ("frustum_convnet_tpu", "jax", "jaxlib", "flax", "optax"))
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    # each path's launches, counted from 0 just before it and read just after;
-    # only kernel 1 runs on the drivers' paths
+    # each path's launches, counted from 0 just before it and read just after:
+    # kernel 1 on every path, the fused epilogue on every float32 eval forward;
+    # the dry-run's child ranks report kernel 1 alone (None for the others)
     paths = {"serving": serve_counts, "training": train["counts"]}
-    paths.update({k: {"group_depth_point_multi": v}
+    paths.update({k: v if isinstance(v, dict) else {"group_depth_point_multi": v}
                   for k, v in {**refine, **sunrgbd, **precision, **people,
                                **runners, **data_parallel,
                                **entry_points["paths"], **bench_run["paths"]}.items()})
     records = []
-    for name, launches, numbers in (
+    for name, launches, numbers, source, replaces in (
             ("group_depth_point_multi", train["counts"]["group_depth_point_multi"],
-             {**kernel, "family_shapes": families}),
+             {**kernel, "family_shapes": families}, select_cuda.KERNEL_SOURCE,
+             select_cuda.REPLACES["group_depth_point_multi"]),
             ("group_depth_point", prof_launches["group_depth_point"],
-             modes["group_depth_point"]),
+             modes["group_depth_point"], select_cuda.KERNEL_SOURCE,
+             select_cuda.REPLACES["group_depth_point"]),
             ("query_depth_point", prof_launches["query_depth_point"],
-             modes["query_depth_point"])):
-        per_path = {p: c.get(name, 0) for p, c in paths.items()}
-        records.append({"name": name, "route": "cuda",
-                        "source": select_cuda.KERNEL_SOURCE,
-                        "replaces": select_cuda.REPLACES[name],
-                        "launches": launches, **numbers, "library_ms": None,
-                        "main_path_launches": sum(per_path.values()),
+             modes["query_depth_point"], select_cuda.KERNEL_SOURCE,
+             select_cuda.REPLACES["query_depth_point"]),
+            ("bn_relu", serve_counts["bn_relu"], modes["bn_relu"],
+             pointnet_epilogue.KERNEL_SOURCE, None),
+            ("bn_relu_mask_maxpool", serve_counts["bn_relu_mask_maxpool"],
+             modes["bn_relu_mask_maxpool"], pointnet_epilogue.KERNEL_SOURCE, None)):
+        per_path = {p: c.get(name) for p, c in paths.items()}
+        records.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches, **numbers,
+                        "library_ms": None,
+                        "main_path_launches": sum(v for v in per_path.values() if v),
                         "path_launches": per_path})
     print(json.dumps({"kernels": records}))
     print(card)

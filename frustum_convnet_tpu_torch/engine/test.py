@@ -51,6 +51,8 @@ from frustum_convnet_tpu_torch.engine.loader import BatchLoader
 from frustum_convnet_tpu_torch.evaluation.kitti_writer import write_detection_results
 from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
+from frustum_convnet_tpu_torch.ops.pointnet_epilogue import (bn_relu_cuda_,
+                                                             bn_relu_mask_maxpool_cuda)
 from frustum_convnet_tpu_torch.ops.select_cuda import group_depth_point_multi_cuda
 from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.utils.logger import get_logger
@@ -440,6 +442,7 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
 
         t_start = time.time()
         launches = group_depth_point_multi_cuda.launches
+        fused = bn_relu_cuda_.launches, bn_relu_mask_maxpool_cuda.launches
         streamed = stream_groups(loader.epoch(0), group, inflight, device, spans,
                                  upload_group, infer_group, postprocess, rerun,
                                  logger=logger, num_groups=num_groups)
@@ -455,6 +458,9 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                     f"{n_overflow} overflow re-runs)")
         logger.info(f"{group_depth_point_multi_cuda.launches - launches} grouping kernel "
                     f"launches in serving")
+        logger.info(f"{bn_relu_cuda_.launches - fused[0]} BatchNorm/ReLU and "
+                    f"{bn_relu_mask_maxpool_cuda.launches - fused[1]} BatchNorm/ReLU/mask/"
+                    f"max-pool epilogue kernel launches in serving")
         stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
                  "sections": n_sections, "detections": n_dets,
                  "overflow_reruns": n_overflow, "fetch_waited": streamed["fetch_waited"]}

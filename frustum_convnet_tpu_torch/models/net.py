@@ -18,7 +18,10 @@ outputs (B, L, 2) and (B, L, R). The model follows ``module.train()`` and
 ``.eval()`` as the JAX model follows its ``train`` argument:
 
 * eval: BatchNorm normalizes with its running statistics, in the JAX
-  package's operation order, and the slot pool is a plain max;
+  package's operation order, and the slot pool is a plain max; in float32
+  on a card with grad off, everything after each PointNet GEMM (BatchNorm,
+  ReLU and, after a scale's last, the mask and the pool) is one CUDA pass
+  of ``ops/pointnet_epilogue``, bit for bit the same;
 * train: BatchNorm normalizes with the biased batch variance and updates
   the running variance with the Bessel-corrected one over
   ``n = numel // C`` values, momentum 0.1 (flax's 0.9): ``TorchBN``,
@@ -63,6 +66,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from frustum_convnet_tpu_torch.models.spec import DetModelSpec
+from frustum_convnet_tpu_torch.ops import pointnet_epilogue
 from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.ops.select_cuda import (group_depth_point_auto,
                                                        group_depth_point_multi_auto)
@@ -218,6 +222,12 @@ def slot_max_pool(x: torch.Tensor, train: bool) -> torch.Tensor:
     return x.amax(dim=2)
 
 
+def pool_sections(g: torch.Tensor, cnt: torch.Tensor, train: bool) -> torch.Tensor:
+    """0 over each section whose ``cnt`` (B, M) is 0, then ``slot_max_pool``:
+    (B, M, K, C) -> (B, M, C)."""
+    return slot_max_pool(g.masked_fill((cnt == 0)[..., None, None], 0.0), train)
+
+
 class DenseBNReLU(nn.Sequential):
     """1x1 conv + BN + ReLU on channels-last (..., C): the (O, I, 1, 1)
     weight is applied with ``F.linear`` in ``self.dtype`` (None: the
@@ -236,10 +246,33 @@ class DenseBNReLU(nn.Sequential):
                          nn.BatchNorm2d(cout, eps=1e-5))
         self.dtype, self.fast_stats, self.bn_group = None, fast_stats, bn_group
 
-    def forward(self, x, update: bool = True):
+    def fuses(self, x) -> bool:
+        """Whether everything after this layer's GEMM of ``x`` runs as one
+        ``ops/pointnet_epilogue`` pass, bit for bit the plain sequence:
+        BatchNorm in eval, float32 on a card (parameters and statistics
+        included) and grad mode off. Otherwise the plain sequence runs (the CPU, training,
+        half precisions, float64, eval with grad on)."""
+        bn = self[1]
+        dtype = self[0].weight.dtype if self.dtype is None else self.dtype
+        return (not bn.training and x.device.type == "cuda" and dtype == torch.float32
+                and not torch.is_grad_enabled()
+                and all(t.dtype == torch.float32 for t in
+                        (bn.weight, bn.bias, bn.running_mean, bn.running_var)))
+
+    def forward(self, x, update: bool = True, cnt=None):
+        """``relu(bn(x @ w^T))``. ``cnt`` (B, M), taken only where
+        ``fuses(x)``, makes this a scale's last layer: the same pass masks
+        its (B, M, K, C) output to 0 where ``cnt == 0`` and pools it over
+        the slots, (B, M, C)."""
         conv, bn = self[0], self[1]
         w = conv.weight.view(conv.out_channels, conv.in_channels)
         y = _dense(x, w, self.dtype)
+        if self.fuses(x):
+            if cnt is None:
+                return pointnet_epilogue.bn_relu_cuda_(y, bn)
+            return pointnet_epilogue.bn_relu_mask_maxpool_cuda(y, cnt, bn)
+        if cnt is not None:
+            raise ValueError("cnt is taken only where the epilogue fuses")
         if not (bn.training and self.fast_stats and self.bn_group == 0):
             return F.relu(_bn(y, bn, -1, self.bn_group, update))
         stat = torch.promote_types(torch.float32, x.dtype)
@@ -339,10 +372,12 @@ class PointNetScale(nn.Module):
         return checkpoint(run, g, use_reentrant=False)
 
     def _mlp_pool(self, g, cnt, update: bool):
-        for layer in self.children():
+        *layers, last = self.children()
+        for layer in layers:
             g = layer(g, update)
-        g = g.masked_fill((cnt == 0)[..., None, None], 0.0)
-        return slot_max_pool(g, self.training)  # (B, M, mlp[-1])
+        if last.fuses(g):  # the last epilogue, the mask and the pool in one pass
+            return last(g, update, cnt)
+        return pool_sections(last(g, update), cnt, self.training)  # (B, M, mlp[-1])
 
 
 class FrustumConvNet(nn.Module):

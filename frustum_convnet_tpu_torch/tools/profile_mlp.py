@@ -8,6 +8,16 @@ shift)``), and each scale's masked max-pool, each timed in isolation, then
 their sum. The products are ``torch.matmul``, as the model's are: the JAX
 package computes them outside any Pallas kernel.
 
+On the card it then times, in float32 at the serving cells' shapes
+(car, people and SUN-RGBD at ``--batch``), each PointNet layer's eval
+epilogue as the model runs it there: one pass of
+``ops/pointnet_epilogue`` (``bn_relu_cuda_``, in place, for every layer
+but a scale's last; ``bn_relu_mask_maxpool_cuda`` for the last), beside
+its plain version and its bound, the bytes it must move (y read and
+written; the served sections' slots of y read, the pooled output written
+and ``cnt`` read) over 3.35 TB/s. Each fused row is first checked bit for
+bit against its plain version on its inputs (returned under ``"fused"``).
+
 Each row is the best of 3 trials of 30 back-to-back calls, timed with CUDA
 events on the card, TF32 off (``engine/test.strict_fp32``), on inputs made
 on the device from a seed. ``--device cpu --tiny`` runs the rows with 2
@@ -17,11 +27,14 @@ calls each on the host clock; those times are the CPU's.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
 
+from frustum_convnet_tpu_torch import configs
 from frustum_convnet_tpu_torch.engine.test import strict_fp32
+from frustum_convnet_tpu_torch.ops import pointnet_epilogue as epi
 from frustum_convnet_tpu_torch.utils.timing import time_calls
 
 ITERS = 30
@@ -29,6 +42,44 @@ TRIALS = 3
 # (M, K, mlp) per scale: the flagship det_base shapes
 SCALES = ((280, 32, (64, 64, 128)), (140, 64, (64, 64, 128)),
           (70, 64, (128, 128, 256)), (35, 128, (256, 256, 512)))
+# each serving cell's model: the reference's config, at its published widths
+FAMILY_CFGS = {"car": "det_sample.yaml", "people": "det_sample_people.yaml",
+               "sunrgbd": "det_sample_sunrgbd.yaml"}
+CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "cfgs")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+
+
+def family_scales(family: str) -> tuple:
+    """(M, K, mlp) per scale of a serving family's model: its sections,
+    slots and PointNet widths, from ``cfgs/<FAMILY_CFGS[family]>``."""
+    cfg = configs.get_default_cfg()
+    configs.merge_cfg_from_file(os.path.join(CFG_DIR, FAMILY_CFGS[family]), cfg)
+    spec = configs.get_model_spec(cfg)
+    return tuple(zip(spec.num_refs, spec.nsamples, spec.mlps))
+
+
+def fused_bytes(y: torch.Tensor, cnt: torch.Tensor | None = None) -> int:
+    """The HBM bytes a fused epilogue must move: y read and written in
+    place (``bn_relu_cuda_``), or, given ``cnt``, the served sections' slots
+    of y read (an empty section's are never read), the pooled output
+    written and ``cnt`` read (``bn_relu_mask_maxpool_cuda``)."""
+    if cnt is None:
+        return 8 * y.numel()
+    b, m, k, c = y.shape
+    return 4 * (int((cnt > 0).sum()) * k * c + b * m * c + b * m)
+
+
+def eval_bn(c: int, gen, device) -> torch.nn.BatchNorm2d:
+    """An eval BatchNorm of ``c`` channels with non-trivial running
+    statistics and affine parameters, drawn from ``gen``."""
+    bn = torch.nn.BatchNorm2d(c, eps=1e-5).to(device).eval()
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.randn(c, generator=gen, device=device) * 0.2)
+        bn.running_var.copy_(torch.rand(c, generator=gen, device=device) * 2 + 0.05)
+        bn.weight.copy_(1 + torch.randn(c, generator=gen, device=device) * 0.2)
+        bn.bias.copy_(torch.randn(c, generator=gen, device=device) * 0.2)
+    return bn
 
 
 def main(argv=None) -> dict:
@@ -88,7 +139,44 @@ def main(argv=None) -> dict:
                 print(f"  {'masked max-pool':44s} {rows[row] * 1e3:8.3f} ms", flush=True)
             rows["TOTAL"] = sum(rows.values())
             print(f"TOTAL (sum of isolated stages): {rows['TOTAL'] * 1e3:.2f} ms")
+        if device.type == "cuda":
+            out["fused"] = fused_rows(b, device, gen, iters, trials)
     return out
+
+
+def fused_rows(b: int, device, gen, iters: int, trials: int) -> dict:
+    """{row: {"ms", "plain_ms", "bound_ms", "share"}} of each PointNet
+    layer's fused eval epilogue at every serving family's shapes, each
+    checked bit for bit against its plain version first."""
+    rows = {}
+    print(f"\n=== fused eval epilogue, float32, batch {b} (bound: bytes over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s) ===", flush=True)
+    for family in FAMILY_CFGS:
+        for si, (m, k, mlp) in enumerate(family_scales(family)):
+            cnt = torch.randint(0, 3, (b, m), generator=gen, device=device,
+                                dtype=torch.int32)
+            for li, c in enumerate(mlp):
+                y = torch.randn((b, m, k, c), generator=gen, device=device)
+                bn = eval_bn(c, gen, device)
+                last = li == len(mlp) - 1
+                kernel, plain = ((epi.bn_relu_mask_maxpool_cuda, epi.bn_relu_mask_maxpool_plain)
+                                 if last else (epi.bn_relu_cuda_, epi.bn_relu_plain))
+                args = (cnt, bn) if last else (bn,)
+                same = torch.equal(kernel(y.clone(), *args), plain(y, *args))
+                nbytes = fused_bytes(y, cnt if last else None)
+                row = (f"{family} scale{si + 1} layer{li + 1} (M={m}, K={k}, C={c}) "
+                       + ("bn/relu/mask/max-pool" if last else "bn/relu"))
+                if not same:
+                    raise AssertionError(f"{row}: the fused epilogue differs from its plain version")
+                ms = time_calls(lambda: kernel(y, *args), device, iters, trials) * 1e3
+                plain_ms = time_calls(lambda: plain(y, *args), device, iters, trials) * 1e3
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                rows[row] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "share": bound_ms / ms}
+                print(f"  {row:66s} fused {ms:8.4f} ms, plain {plain_ms:8.4f} ms, bound "
+                      f"{bound_ms:8.4f} ms ({bound_ms / ms:6.1%})", flush=True)
+                del y
+    return rows
 
 
 if __name__ == "__main__":
