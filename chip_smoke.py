@@ -830,7 +830,10 @@ def phase_driver(model, split: dict, work: str, opts=(), tag: str = "driver",
     if {k: counts[k] for k in fused} != fused:
         raise AssertionError(f"[{tag}] epilogue launches {counts} for {launches} "
                              f"forwards, expected {fused}")
-    expected = n_batches // 2 + 1 + stats["overflow_reruns"]
+    if stats["overflow_reruns"]:
+        raise AssertionError(f"[{tag}] {stats['overflow_reruns']} overflow re-runs: "
+                             "every foreground section comes back")
+    expected = n_batches // 2 + n_batches % 2  # whole groups of 2, the padded tail
     print(f"[{tag}] {stats['frustums']} frustums, {n_batches} batches of 32 in "
           f"groups of 2: {launches} kernel launches (expected {expected}), "
           f"epilogue launches {fused}, "
@@ -838,8 +841,7 @@ def phase_driver(model, split: dict, work: str, opts=(), tag: str = "driver",
           f"({stats['sections'] / stats['frustums']:.3f} a frustum), "
           f"{stats['detections']} detections "
           f"({stats['detections'] / stats['frustums']:.3f} a frustum), "
-          f"{len(values)} after NMS in {len(files)} files, "
-          f"{stats['overflow_reruns']} overflow re-runs")
+          f"{len(values)} after NMS in {len(files)} files")
     print(f"[{tag}] end-to-end {stats['frustums_per_s']:.1f} frustums/s over "
           f"{stats['seconds']:.2f}s; host seconds by span "
           f"{ {k: round(v['s'], 3) for k, v in stats['spans'].items()} }")
@@ -1075,7 +1077,7 @@ def _serve_kitti(tag: str, cfg_file: str, raw: str, args: list, group: int = 2,
     launches = counts["group_depth_point_multi"]
     stats = out["stats"]
     n_batches = -(-stats["frustums"] // 32)
-    forwards = n_batches // group + n_batches % group + stats["overflow_reruns"]
+    forwards = -(-n_batches // group)  # whole groups and one for a partial group
     with open(idx_path) as f:
         n_ids = sum(1 for line in f if line.strip())
     files = sorted(os.listdir(out["result_dir"]))

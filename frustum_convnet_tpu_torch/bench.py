@@ -11,7 +11,8 @@ Counterpart of the repository's ``bench.py``, with its blocks, in its order:
   multi-scale PointNet + 1D FCN + heads + box decode, at the reference batch
   (32) and at serving batches (256, 1024); the headline value is the best;
 * serving: ``engine.test.build_infer_group_fn`` at group 8, batch 32,
-  ``nms``, cap 64, with the ladders rebuilt on the device from ``z_grids``;
+  ``nms`` (every foreground section packed), with the ladders rebuilt on
+  the device from ``z_grids``;
 * the float32 train sweep at batches 32/128/256: the full step (forward,
   losses, gradients, Adam, BatchNorm update) at the shipped metric cadence;
 * the train headline, chosen only from ``SUPPORTED_TRAIN_RECIPES``;
@@ -132,7 +133,7 @@ UNIT = "frustums/sec/chip"
 SUPPORTED_TRAIN_RECIPES = (
     (32, "float32", "", 0, 0, 1e-3,
      "PERF.md §5 protocol runs: the f32 / b32 stage-1 row and run 6, its "
-     "control rerun"),
+     "control re-run"),
     (32, "bfloat16", "", 0, 0, 1e-3,
      "PERF.md §5 protocol runs: run 1, bf16 / b32, and its refine, run 2"),
     (128, "float32", "", 0, 0, 4e-3,
@@ -151,7 +152,7 @@ PROTOCOL_EPOCHS = 50
 # The port's 50-epoch protocol Car 3D AP (easy) on this card per training
 # seed, keyed by (batch, dtype) (PERF.md §5, protocol runs).
 SEED_APS = {
-    (32, "float32"): {"4": 90.72, "4 (control rerun)": 90.77},
+    (32, "float32"): {"4": 90.72, "4 (control re-run)": 90.77},
     (32, "bfloat16"): {"4": 90.79},
     (128, "float32"): {"4": 90.40},
     (128, "float16"): {"4": 90.37},
@@ -428,8 +429,7 @@ def scan_bench_serving(model, spec, group: int, bsz: int, method: str = "nms",
     model.eval()
     z_grids = [(np.arange(m, dtype=np.float32) + 0.5) * s
                for m, s in zip(spec.num_refs, spec.strides)]
-    cap = min(64, spec.num_out)
-    infer_group = build_infer_group_fn(model, spec, method, cap, z_grids=z_grids)
+    infer_group = build_infer_group_fn(model, spec, method, z_grids=z_grids)
 
     batch = make_batch(spec, batch=bsz, seed=0, with_labels=False)
 

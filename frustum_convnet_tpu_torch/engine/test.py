@@ -11,14 +11,14 @@ score = section cls prob + 2D detector prob, 3D rotated NMS at
 The streaming design is the JAX driver's: G batches flattened into one
 forward, the section ladders rebuilt on the device from 6 floats per frustum,
 the point stream uploaded as float16 and decoded to float32 on the device,
-and only the compacted foreground sections brought back (a batch whose
-foreground count overflows the cap re-runs through the full decode). The
+and only the compacted foreground sections brought back, all of them. The
 model computes in ``TPU.INFER_DTYPE`` (its trunk and heads in
 ``TPU.TRUNK_DTYPE``) after the float32 grouping; decode and the host
 postprocess take its heads' outputs, which are at least float32. The
-numpy post-processing (foreground selection, box decode, packing for the
-writer) is carried over from the JAX driver, whose module imports jax at
-the top.
+numpy post-processing (box decode, packing for the writer) is carried over
+from the JAX driver, whose module imports jax at the top. The SUN-RGBD
+driver (``engine/test_sunrgbd.py``) makes the same serving call
+(``serve_dataset``) with its own selection rule and postprocess.
 
 Several cards serve as N processes, one a card, each with ``--device cuda``
 and the environment of ``parallel.mesh`` (``FRUSTUM_COORDINATOR=host:port``,
@@ -51,8 +51,6 @@ from frustum_convnet_tpu_torch.engine.loader import BatchLoader
 from frustum_convnet_tpu_torch.evaluation.kitti_writer import write_detection_results
 from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
-from frustum_convnet_tpu_torch.ops.pointnet_epilogue import (bn_relu_cuda_,
-                                                             bn_relu_mask_maxpool_cuda)
 from frustum_convnet_tpu_torch.ops.select_cuda import group_depth_point_multi_cuda
 from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.utils.logger import get_logger
@@ -80,18 +78,6 @@ def upload_tensor(t: torch.Tensor, device: torch.device, dtype=None) -> torch.Te
     return staged.to(device, non_blocking=True)
 
 
-def build_infer_fn(model, spec):
-    """(points, one_hot, refs) -> decoded outputs, for one batch."""
-
-    @torch.inference_mode()
-    def infer(pts, one_hot, refs):
-        # pts may arrive in the reduced upload dtype: kernel 1 takes float32
-        cls_logits, reg = model(pts.float(), one_hot, list(refs))
-        return decode_outputs(spec, cls_logits, reg, refs[1])
-
-    return infer
-
-
 def rebuild_ladders(ref_dir, ref_off, z_grids):
     """Section ladders (B, M_i, 3) from the affine basis ``ref(z) = z * dir
     + off`` (``FrustumProvider.ref_basis``, (B, 3) each) and the static
@@ -102,16 +88,26 @@ def rebuild_ladders(ref_dir, ref_off, z_grids):
                  for z in z_grids)
 
 
-def build_infer_group_fn(model, spec, method: str, cap: int, z_grids=None):
-    """G stacked batches -> one forward, with on-device foreground compaction.
+def kitti_rule(out: dict, top: bool) -> tuple:
+    """KITTI's selection on the decoded outputs, the JAX driver's: the
+    foreground mask p1 > p0 (None under 'top') and the packed value, p1."""
+    probs = out["cls_probs"]  # (R, L, 2)
+    return None if top else probs[:, :, 1] > probs[:, :, 0], probs[:, :, 1]
+
+
+def build_infer_group_fn(model, spec, method: str, z_grids=None, rule=kitti_rule):
+    """G stacked batches -> one flattened (G*B) forward, with the selection
+    on the device.
 
     Returns, per frustum, only the selected sections packed as (G, B, S, 8) =
-    [cx, cy, cz, heading, l, w, h, fg_prob] plus the uncapped foreground
-    count (G, B). 'nms' keeps every foreground section (the first ``cap`` in
-    section order; the caller re-runs a batch whose count exceeds the cap
-    through the full path), 'top' keeps the argmax section. With ``z_grids``
-    the refs argument is (ref_dir, ref_off) and the ladders are rebuilt on
-    the device as ``off + dir * z``.
+    [cx, cy, cz, heading, l, w, h, value] plus their count (G, B).
+    ``rule(out, top)`` is the family's selection on the decoded outputs: the
+    foreground mask (None under 'top') and the packed value. 'nms' keeps
+    every foreground section in section order (the argmax where a frustum
+    has none), S = L, so none is left out; 'top' keeps the argmax, S = 1.
+    The refs argument is the ladders, (G, B, M_i, 3) each, or the affine
+    basis (ref_dir, ref_off), (G, B, 3) each, whose ladders are rebuilt on
+    the device as ``off + dir * z`` over ``z_grids``.
     """
     sel_top = method != "nms"
     device = next(model.parameters()).device
@@ -126,29 +122,27 @@ def build_infer_group_fn(model, spec, method: str, cap: int, z_grids=None):
         def flat(x):
             return x.reshape((g * b,) + tuple(x.shape[2:]))
 
-        pts, one_hot = flat(pts_g).float(), flat(one_hot_g)
-        if z_consts is None:
-            refs = tuple(flat(r) for r in refs_g)
-        else:
-            refs = rebuild_ladders(flat(refs_g[0]), flat(refs_g[1]), z_consts)
-        cls_logits, reg = model(pts, one_hot, list(refs))
+        refs = tuple(flat(r) for r in refs_g)
+        if refs[0].dim() == 2:  # the basis
+            refs = rebuild_ladders(*refs, z_consts)
+        # pts may arrive in the reduced upload dtype: kernel 1 takes float32
+        cls_logits, reg = model(flat(pts_g).float(), flat(one_hot_g), list(refs))
         out = decode_outputs(spec, cls_logits, reg, refs[1])
-        probs = out["cls_probs"]  # (G*B, L, 2)
-        fg = None if sel_top else probs[:, :, 1] > probs[:, :, 0]
-        sel, cnt = compact_sections(probs[:, :, 1], fg, cap)
+        fg, value = rule(out, sel_top)
+        sel, cnt = compact_sections(out["cls_probs"][:, :, 1], fg)
         packed = take_sections(sel, out["centers"], out["headings"], out["sizes"],
-                               probs[:, :, 1])  # (G*B, S, 8)
+                               value)  # (G*B, S, 8)
         return packed.reshape(g, b, *packed.shape[1:]), cnt.reshape(g, b)
 
     return infer_group
 
 
-def compact_sections(fg_prob: torch.Tensor, fg, cap: int) -> tuple:
+def compact_sections(fg_prob: torch.Tensor, fg) -> tuple:
     """On the device, the selected sections of each frustum (R, L): with
-    ``fg`` None the argmax of ``fg_prob``, else the sections of ``fg`` (the
-    argmax where a frustum has none), the first ``cap`` of them in section
-    order. Returns (sel (R, S) long, cnt (R,) int32 uncapped); the slots
-    past a frustum's count hold section 0."""
+    ``fg`` None the argmax of ``fg_prob`` (S = 1), else the sections of
+    ``fg`` (the argmax where a frustum has none) in section order (S = L).
+    Returns (sel (R, S) long, cnt (R,) int32); the slots past a frustum's
+    count hold section 0."""
     rows, length = fg_prob.shape
     top = torch.argmax(fg_prob, dim=1)  # (R,)
     if fg is None:
@@ -157,11 +151,10 @@ def compact_sections(fg_prob: torch.Tensor, fg, cap: int) -> tuple:
     ar = torch.arange(length, dtype=torch.int32, device=fg_prob.device)
     fg = fg | (none[:, None] & (ar[None, :] == top[:, None]))
     key = torch.where(fg, ar, ar + length)
-    neg, _ = torch.topk(-key, cap, dim=1, largest=True, sorted=True)
-    sel_all = torch.clamp(-neg, max=length - 1)  # first-cap fg sections
+    neg, _ = torch.topk(-key, length, dim=1, largest=True, sorted=True)
+    sel_all = torch.clamp(-neg, max=length - 1)  # the fg sections first
     cnt = fg.sum(dim=1).to(torch.int32)
-    slot = torch.arange(cap, dtype=torch.int32, device=fg_prob.device)
-    sel = torch.where(slot[None, :] < cnt[:, None], sel_all, torch.zeros_like(sel_all))
+    sel = torch.where(ar[None, :] < cnt[:, None], sel_all, torch.zeros_like(sel_all))
     return sel.long(), cnt
 
 
@@ -191,27 +184,23 @@ def queue_fetch(out_dev: tuple, device) -> tuple:
 
 
 def stream_groups(batches, group: int, inflight: int, device, spans: dict, upload,
-                  forward, postprocess, rerun=None, pad_tail: bool = False,
-                  logger=None, num_groups: int = 0) -> dict:
-    """The group pipeline both serving drivers run over their loader's
-    ``batches``.
+                  forward, postprocess, logger=None, num_groups: int = 0) -> dict:
+    """The group pipeline of the serving call (``serve_dataset``) over its
+    loader's ``batches``.
 
-    ``group`` batches at a time: ``upload(batches)`` stacks and uploads them
-    (span ``serve.upload``) and returns the device inputs;
-    ``forward(*inputs)`` queues the grouped forward and returns its device
-    outputs, whose copy back is queued right behind it with an event (span
-    ``serve.dispatch``). Once ``inflight`` groups are queued the oldest is
-    fetched: ``serve.fetch`` waits on its event alone, then
-    ``postprocess(host, g, batch)`` takes each of its batches (numpy
-    outputs, the batch's index in the group; span ``serve.postprocess``)
-    and returns True when the batch must run again, which
-    ``rerun(batch)`` then does. With ``pad_tail`` the final partial group
-    is padded by repeating its last batch and goes the same way; without,
-    its batches are returned to the caller.
+    ``group`` batches at a time, the final partial group padded by
+    repeating its last batch: ``upload(batches, tail)`` stacks and uploads
+    them (span ``serve.upload``; ``tail`` is True for the padded group) and
+    returns the device inputs; ``forward(*inputs)`` queues the grouped
+    forward and returns its device outputs, whose copy back is queued right
+    behind it with an event (span ``serve.dispatch``). Once ``inflight``
+    groups are queued the oldest is fetched: ``serve.fetch`` waits on its
+    event alone, then ``postprocess(host, g, batch)`` takes each of its real
+    batches (numpy outputs, the batch's index in the group; span
+    ``serve.postprocess``).
 
     Returns {"frustums": real frustums streamed, "fetch_waited": groups
-    whose outputs were not back yet when fetched (0 off a card), "tail":
-    the batches left over}."""
+    whose outputs were not back yet when fetched (0 off a card)}."""
     pending: deque = deque()  # (queue_fetch of a group, its batches), oldest first
     acc: list = []
     n = gi = waited = 0
@@ -228,14 +217,12 @@ def stream_groups(batches, group: int, inflight: int, device, spans: dict, uploa
             outs = tuple(t.numpy() for t in host)
         for g, batch in enumerate(real):
             with span("serve.postprocess", spans):
-                again = postprocess(outs, g, batch)
-            if again:
-                rerun(batch)
+                postprocess(outs, g, batch)
 
-    def launch(real: list, padded: list) -> None:
+    def launch(real: list) -> None:
         nonlocal gi
         with span("serve.upload", spans):
-            inputs = upload(padded)
+            inputs = upload(real + [real[-1]] * (group - len(real)), len(real) < group)
         with span("serve.dispatch", spans):  # the copy back before the next upload
             fetch = queue_fetch(forward(*inputs), device)
         pending.append((fetch, real))
@@ -250,29 +237,13 @@ def stream_groups(batches, group: int, inflight: int, device, spans: dict, uploa
         n += int(batch["_real"])
         acc.append(batch)
         if len(acc) == group:
-            launch(acc, acc)
+            launch(acc)
             acc = []
-    if acc and pad_tail:
-        launch(acc, acc + [acc[-1]] * (group - len(acc)))
-        acc = []
+    if acc:
+        launch(acc)
     while pending:
         process(*pending.popleft())
-    return {"frustums": n, "fetch_waited": waited, "tail": acc}
-
-
-def select_foreground_batch(cls_probs: np.ndarray, real: int, method: str):
-    """Per-frustum section selection over the first ``real`` frustums of
-    cls_probs (B, L, 2): 'nms' keeps every section with fg > bg (argmax
-    fallback per frustum), 'top' the per-frustum argmax. Returns (det_b, det_m)."""
-    probs = cls_probs[:real]
-    top = np.argmax(probs[:, :, 1], axis=1)
-    if method != "nms":
-        return np.arange(real), top
-    fg = probs[:, :, 0] < probs[:, :, 1]
-    none = ~fg.any(axis=1)
-    if none.any():
-        fg[np.nonzero(none)[0], top[none]] = True
-    return np.nonzero(fg)
+    return {"frustums": n, "fetch_waited": waited}
 
 
 def _accumulate_detections(centers, headings, sizes, fg_probs, det_b,
@@ -307,75 +278,66 @@ def _accumulate_detections(centers, headings, sizes, fg_probs, det_b,
     return len(det_b)
 
 
-def postprocess_batch(out: dict, batch: dict, dataset, method: str,
-                      det_results: dict) -> int:
-    """Detections of one full-decode batch (numpy arrays in ``out``)."""
+def postprocess_packed(packed: np.ndarray, cnt: np.ndarray, batch: dict,
+                       dataset, det_results: dict) -> int:
+    """Detections of one packed batch: packed (B, S, 8), cnt (B,). Returns
+    the number of detections kept."""
     real = int(batch["_real"])
-    cls_probs = out["cls_probs"]
-    det_b, det_m = select_foreground_batch(cls_probs, real, method)
+    slot = np.arange(packed.shape[1])
+    det_b, det_s = np.nonzero(slot[None, :] < cnt[:real, None])
     if det_b.size == 0:
         return 0
-    return _accumulate_detections(
-        out["centers"][det_b, det_m], out["headings"][det_b, det_m],
-        out["sizes"][det_b, det_m], cls_probs[det_b, det_m, 1],
-        det_b, batch, dataset, det_results)
-
-
-def postprocess_packed(packed: np.ndarray, cnt: np.ndarray, batch: dict,
-                       dataset, det_results: dict, cap: int) -> tuple[int, bool]:
-    """Detections of one packed batch: packed (B, S, 8), cnt (B,) uncapped.
-    Returns (n_detections, overflowed); on overflow nothing is accumulated
-    and the caller re-runs the batch through the full path."""
-    real = int(batch["_real"])
-    cnt = cnt[:real]
-    if (cnt > cap).any():
-        return 0, True
-    slot = np.arange(packed.shape[1])
-    det_b, det_s = np.nonzero(slot[None, :] < cnt[:, None])
-    if det_b.size == 0:
-        return 0, False
     rows = packed[det_b, det_s]  # (D, 8)
-    n = _accumulate_detections(rows[:, 0:3], rows[:, 3], rows[:, 4:7],
-                               rows[:, 7], det_b, batch, dataset, det_results)
-    return n, False
+    return _accumulate_detections(rows[:, 0:3], rows[:, 3], rows[:, 4:7],
+                                  rows[:, 7], det_b, batch, dataset, det_results)
 
 
-def run_test(model, spec, dataset, batch_size: int, method: str, logger,
-             num_workers: int = 4, group: int = 8, fg_cap: int = 64,
-             inflight: int = 2, points_dtype: torch.dtype = torch.float16):
-    """Stream ``dataset`` through ``model`` on its device; accumulate detections.
+def _postprocess_kitti(packed, cnt, batch: dict, dataset, det_results: dict,
+                       counts: dict) -> None:
+    """KITTI's batch postprocess in ``serve_dataset``: ``postprocess_packed``,
+    its selected sections and kept detections added to ``counts``."""
+    counts["sections"] += int(cnt[:int(batch["_real"])].sum())
+    counts["detections"] += postprocess_packed(packed, cnt, batch, dataset, det_results)
+
+
+def serve_dataset(model, spec, dataset, batch_size: int, method: str, logger, rule,
+                  postprocess, counts: dict, num_workers: int, group: int, inflight: int,
+                  points_dtype: torch.dtype) -> tuple:
+    """The serving call of both drivers: stream ``dataset`` through
+    ``model`` on its device and accumulate detections. A family gives its
+    selection ``rule`` (``build_infer_group_fn``), its host
+    ``postprocess(packed, cnt, batch, dataset, det_results, counts)`` of one
+    batch and the ``counts`` that adds to.
 
     BatchLoader threads prepare batches ahead; G batches go to the device as
-    one forward; the host post-processes a finished group while up to
-    ``inflight`` groups are queued on the device (``stream_groups``, the
-    group pipeline ``run_test_sunrgbd`` shares). On a card nothing in the
-    group loop waits for it but the fetch of the oldest group: the uploads
-    are staged in page-locked memory and queued without waiting, the size
-    table lives on the card, and right after a group's forward is queued its
-    outputs' copy back is queued behind it and followed by an event, which
-    the fetch waits on alone. The final partial group runs batch by batch
-    through the full path, which waits for each batch.
+    one forward, the final partial group padded by repeating its last batch;
+    the host post-processes a finished group a batch at a time while up to
+    ``inflight`` groups are queued on the device (``stream_groups``). On a
+    card nothing in the group loop waits for it but the fetch of the oldest
+    group: the uploads are staged in page-locked memory and queued without
+    waiting, the size table lives on the card, and right after a group's
+    forward is queued its outputs' copy back is queued behind it and
+    followed by an event, which the fetch waits on alone. From a dataset
+    with ``ref_basis`` a group uploads the 6 floats of a frustum's ladder
+    basis and its ladders are rebuilt on the device; the tail group uploads
+    the provider's ladders, as the JAX driver's tail takes them.
 
     Under a process group of N > 1 ranks this rank streams its batch shard
     and the ranks' detections are merged at the end, so every rank returns
     them all; the stats are this rank's.
 
-    Returns (det_results, stats): the KITTI writer's detection dict and
-    {"frustums", "seconds", "frustums_per_s", "sections", "detections",
-    "overflow_reruns", "fetch_waited", "spans"}: ``frustums`` counts the real
-    frustums streamed here, ``sections`` the selected foreground sections
-    (argmax fallbacks included), ``detections`` those left after degenerate
-    boxes are dropped, ``fetch_waited`` the groups whose outputs were not
-    back yet when the host came to fetch them (the card set the pace; always
-    0 off a card), and ``spans`` the host time of the call's parts
+    Returns (det_results, {"frustums", "seconds", "frustums_per_s",
+    **counts, "fetch_waited", "spans"}): ``frustums`` counts the real
+    frustums streamed here, ``fetch_waited`` the groups whose outputs were
+    not back yet when the host came to fetch them (the card set the pace;
+    always 0 off a card), and ``spans`` the host time of the call's parts
     (``utils.trace``: {name: {"n": entries, "s": seconds}}): ``serve.call``
     the whole call, ``serve.start`` the set-up before the stream,
     ``serve.loader_wait`` each wait on the loader, ``serve.upload`` a
     group's stack, cast and copies to the device, ``serve.dispatch`` the
     launch of its forward and of its outputs' copy back, ``serve.fetch`` the
-    host waiting for that copy, ``serve.postprocess`` a
-    batch's host postprocess and ``serve.full_path`` a batch re-run or run
-    whole through the full decode.
+    host waiting for that copy and ``serve.postprocess`` a batch's host
+    postprocess.
     """
     spans: dict = {}
     with span("serve.call", spans):
@@ -383,14 +345,9 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
             strict_fp32()
             model.eval()
             device = next(model.parameters()).device
-            use_basis = hasattr(dataset, "ref_basis")
-            # topk(k) requires k <= section count; overflow re-runs keep semantics
-            fg_cap = min(fg_cap, spec.num_out)
-            cap = 1 if method != "nms" else fg_cap
-            infer_group = build_infer_group_fn(
-                model, spec, method, cap,
-                z_grids=dataset.ref_depths() if use_basis else None)
-            infer_full = build_infer_fn(model, spec)  # tail batches, overflow re-runs
+            group = max(int(group), 1)
+            z_grids = dataset.ref_depths() if hasattr(dataset, "ref_basis") else None
+            infer_group = build_infer_group_fn(model, spec, method, z_grids, rule)
             pc, pi = mesh.process_count(), mesh.process_index()
             loader = BatchLoader(dataset, batch_size, spec.num_scales, shuffle=False,
                                  drop_last=False, pad_last=True, seed=0,
@@ -398,76 +355,64 @@ def run_test(model, spec, dataset, batch_size: int, method: str, logger,
                                  batch_shard=(pi, pc) if pc > 1 else None)
         num_groups = (len(range(pi, len(loader), pc)) + group - 1) // group
         det_results: dict = {}
-        n_dets = n_sections = n_overflow = 0
 
-        def upload(x, dtype=None):
-            return upload_tensor(torch.from_numpy(np.ascontiguousarray(x)), device, dtype)
+        def upload(arrays, dtype=None):
+            x = np.ascontiguousarray(np.stack(arrays))
+            return upload_tensor(torch.from_numpy(x), device, dtype)
 
-        def full_path(batch) -> int:
-            nonlocal n_sections
-            with span("serve.full_path", spans):
-                out = infer_full(upload(batch["point_cloud"], points_dtype),
-                                 upload(batch["one_hot"]),
-                                 tuple(upload(r) for r in batch["refs"]))
-                out = {k: v.cpu().numpy() for k, v in out.items()}
-                n_sections += select_foreground_batch(out["cls_probs"], int(batch["_real"]),
-                                                      method)[0].size
-                return postprocess_batch(out, batch, dataset, method, det_results)
-
-        def upload_group(batches) -> tuple:
-            pts_g = upload(np.stack([b["point_cloud"] for b in batches]), points_dtype)
-            oh_g = upload(np.stack([b["one_hot"] for b in batches]))
-            if use_basis:  # ladders rebuilt on the device from 6 floats/frustum
-                refs_g = (upload(np.stack([b["ref_dir"] for b in batches])),
-                          upload(np.stack([b["ref_off"] for b in batches])))
-            else:
-                refs_g = tuple(upload(np.stack([b["refs"][i] for b in batches]))
+        def upload_group(batches, tail: bool) -> tuple:
+            pts_g = upload([b["point_cloud"] for b in batches], points_dtype)
+            oh_g = upload([b["one_hot"] for b in batches])
+            if z_grids is None or tail:
+                refs_g = tuple(upload([b["refs"][i] for b in batches])
                                for i in range(spec.num_scales))
+            else:  # ladders rebuilt on the device from 6 floats a frustum
+                refs_g = (upload([b["ref_dir"] for b in batches]),
+                          upload([b["ref_off"] for b in batches]))
             return pts_g, oh_g, refs_g
 
-        def postprocess(host, g, batch) -> bool:
-            nonlocal n_dets, n_sections
+        def postprocess_group(host, g, batch) -> None:
             packed_g, cnt_g = host
-            nd, overflow = postprocess_packed(packed_g[g], cnt_g[g], batch, dataset,
-                                              det_results, cap)
-            if not overflow:
-                n_sections += int(cnt_g[g][:int(batch["_real"])].sum())
-                n_dets += nd
-            return overflow
-
-        def rerun(batch) -> None:  # > cap fg sections: exact semantics via full path
-            nonlocal n_dets, n_overflow
-            n_overflow += 1
-            n_dets += full_path(batch)
+            postprocess(packed_g[g], cnt_g[g], batch, dataset, det_results, counts)
 
         t_start = time.time()
         launches = group_depth_point_multi_cuda.launches
-        fused = bn_relu_cuda_.launches, bn_relu_mask_maxpool_cuda.launches
         streamed = stream_groups(loader.epoch(0), group, inflight, device, spans,
-                                 upload_group, infer_group, postprocess, rerun,
+                                 upload_group, infer_group, postprocess_group,
                                  logger=logger, num_groups=num_groups)
         n = streamed["frustums"]
-        for batch in streamed["tail"]:  # final partial group: per-batch full path
-            n_dets += full_path(batch)
-
         elapsed = time.time() - t_start
         where = f" on rank {pi} of {pc}" if pc > 1 else ""
         logger.info(f"streamed {n} frustums{where} in {elapsed:.2f}s = "
-                    f"{n / elapsed:.0f} frustums/s end-to-end "
-                    f"({n_sections} foreground sections, {n_dets} detections, "
-                    f"{n_overflow} overflow re-runs)")
+                    f"{n / elapsed:.0f} frustums/s end-to-end ("
+                    + ", ".join(f"{v} {k}" for k, v in counts.items()) + ")")
         logger.info(f"{group_depth_point_multi_cuda.launches - launches} grouping kernel "
                     f"launches in serving")
-        logger.info(f"{bn_relu_cuda_.launches - fused[0]} BatchNorm/ReLU and "
-                    f"{bn_relu_mask_maxpool_cuda.launches - fused[1]} BatchNorm/ReLU/mask/"
-                    f"max-pool epilogue kernel launches in serving")
         stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
-                 "sections": n_sections, "detections": n_dets,
-                 "overflow_reruns": n_overflow, "fetch_waited": streamed["fetch_waited"]}
+                 **counts, "fetch_waited": streamed["fetch_waited"]}
         if pc > 1:  # one collective merges the ranks' detection dicts
             det_results = mesh.allgather_detections(det_results)
     stats["spans"] = spans
     return det_results, stats
+
+
+def run_test(model, spec, dataset, batch_size: int, method: str, logger,
+             num_workers: int = 4, group: int = 8, inflight: int = 2,
+             points_dtype: torch.dtype = torch.float16):
+    """Stream the KITTI ``dataset`` through ``model`` on its device in
+    groups of ``group`` batches (``serve_dataset``); accumulate detections.
+
+    Returns (det_results, stats): the KITTI writer's detection dict and
+    {"frustums", "seconds", "frustums_per_s", "sections", "detections",
+    "overflow_reruns", "fetch_waited", "spans"} as ``serve_dataset`` counts them:
+    ``sections`` the selected foreground sections (argmax fallbacks
+    included), ``detections`` those left after degenerate boxes are dropped
+    and ``overflow_reruns`` 0, since every foreground section comes back.
+    """
+    return serve_dataset(model, spec, dataset, batch_size, method, logger, kitti_rule,
+                         _postprocess_kitti,
+                         {"sections": 0, "detections": 0, "overflow_reruns": 0},
+                         num_workers, group, inflight, points_dtype)
 
 
 def load_state_for_test(model, cfg_, logger) -> None:

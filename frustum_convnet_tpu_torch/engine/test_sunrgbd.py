@@ -9,14 +9,14 @@ to centroid-anchored boxes (no h/2 bottom shift), drop degenerate sizes,
 convert to 8-corner form, optional 3D NMS, then in-process VOC AP at 3D IoU
 ``cfg.IOU_THRESH`` against ground truth built from the label files.
 
-The pipelining is ``run_test``'s group pipeline
-(``engine.test.stream_groups``): BatchLoader threads prepare batches ahead,
-G batches go to the device as one flattened forward (the tail group padded
-by repeating its last batch, as the JAX driver does), the selection runs on
-the device and only the selected sections come back, and up to
-``inflight`` groups queue on the device while the host post-processes
-finished ones, a batch at a time. The model computes in
-``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``, as in ``engine/test.py``.
+The serving call is ``run_test``'s (``engine.test.serve_dataset``):
+BatchLoader threads prepare batches ahead, G batches go to the device as
+one flattened forward (the tail group padded by repeating its last batch,
+as the JAX driver does), the selection runs on the device and only the
+selected sections come back, and up to ``inflight`` groups queue on the
+device while the host post-processes finished ones, a batch at a time.
+The model computes in ``TPU.INFER_DTYPE`` and ``TPU.TRUNK_DTYPE``, as in
+``engine/test.py``.
 
 Several cards serve as N processes, one a card, as ``engine/test.py`` does
 (``--device cuda`` and the environment of ``parallel.mesh``): rank r
@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import numpy as np
 import torch
@@ -39,16 +38,12 @@ from frustum_convnet_tpu_torch.core import geometry_np as gnp
 from frustum_convnet_tpu_torch.core.nms import rotate_nms_3d
 from frustum_convnet_tpu_torch.data.provider_sunrgbd import FrustumSunrgbdProvider
 from frustum_convnet_tpu_torch.data.sunrgbd.prepare import TYPE_WHITELIST_10
-from frustum_convnet_tpu_torch.engine.loader import BatchLoader
-from frustum_convnet_tpu_torch.engine.test import (INIT_SEED, compact_sections,
-                                                   load_state_for_test, stream_groups,
-                                                   strict_fp32, take_sections, upload_tensor)
+from frustum_convnet_tpu_torch.engine.test import (INIT_SEED, load_state_for_test,
+                                                   serve_dataset)
 from frustum_convnet_tpu_torch.evaluation.sunrgbd_eval import build_gt_all, eval_det
-from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
 from frustum_convnet_tpu_torch.parallel import mesh
 from frustum_convnet_tpu_torch.utils.logger import get_logger
-from frustum_convnet_tpu_torch.utils.trace import span
 
 FG_PROB_THRESH = 0.5
 
@@ -58,36 +53,12 @@ def corners_from_params(center, size, heading) -> np.ndarray:
     return gnp.box3d_corners(np.asarray(center), np.asarray(size), float(heading))
 
 
-def build_infer_group_sun_fn(model, spec, method: str):
-    """G stacked batches -> one flattened (G*B) forward, with the selection
-    on the device.
-
-    Returns, per frustum, only the selected sections packed as (G, B, S, 8)
-    = [cx, cy, cz, heading, l, w, h, max size prob] plus the selected count
-    (G, B). 'nms' keeps the sections with fg prob > 0.5 (the argmax when
-    none is) in section order, S = L, so none is left out; 'top' the
-    argmax, S = 1. The 5 ladders come as they are (G, B, M_i, 3)."""
-    sel_top = method != "nms"
-
-    @torch.inference_mode()
-    def infer_group(pts_g, one_hot_g, *refs_g):
-        g, b = pts_g.shape[:2]
-
-        def flat(x):
-            return x.reshape((g * b,) + tuple(x.shape[2:]))
-
-        refs = [flat(r) for r in refs_g]
-        # pts may arrive in the reduced upload dtype: kernel 1 takes float32
-        cls_logits, reg = model(flat(pts_g).float(), flat(one_hot_g), refs)
-        out = decode_outputs(spec, cls_logits, reg, refs[1])
-        fg_prob = out["cls_probs"][:, :, 1]
-        sel, cnt = compact_sections(fg_prob, None if sel_top else fg_prob > FG_PROB_THRESH,
-                                    spec.num_out)
-        packed = take_sections(sel, out["centers"], out["headings"], out["sizes"],
-                               out["size_probs"].amax(dim=-1))  # (G*B, S, 8)
-        return packed.reshape(g, b, *packed.shape[1:]), cnt.reshape(g, b)
-
-    return infer_group
+def sunrgbd_rule(out: dict, top: bool) -> tuple:
+    """SUN-RGBD's selection on the decoded outputs: the foreground mask fg
+    prob > 0.5 (None under 'top') and the packed value, the largest size
+    prob."""
+    fg_prob = out["cls_probs"][:, :, 1]
+    return None if top else fg_prob > FG_PROB_THRESH, out["size_probs"].amax(dim=-1)
 
 
 def label_format_batch(centers, headings, sizes, rot_angles) -> np.ndarray:
@@ -141,75 +112,22 @@ def postprocess_packed_sun(packed: np.ndarray, cnt: np.ndarray, batch: dict, dat
 def run_test_sunrgbd(model, spec, dataset, batch_size: int, method: str, logger,
                      num_workers: int = 4, inflight: int = 2, group: int = 8,
                      points_dtype: torch.dtype = torch.float16):
-    """Stream ``dataset`` through ``model`` on its device; accumulate detections.
-
-    The group pipeline is ``engine.test.stream_groups``, ``run_test``'s: the
-    points (in ``points_dtype``), the one-hot and the 5 ladders go up in
-    page-locked memory without waiting; the forward, decode and selection
-    run on the device and only the selected sections come back, behind one
-    event a group, which the fetch waits on alone; the host postprocesses a
-    batch at a time. The final partial group is padded by repeating its last
-    batch.
-
-    Under a process group of N > 1 ranks this rank streams its batch shard
-    and every rank returns the merged detections; the stats are this rank's.
+    """Stream ``dataset`` through ``model`` on its device in groups of
+    ``group`` batches (``engine.test.serve_dataset``, ``run_test``'s serving
+    call), with SUN-RGBD's selection (``sunrgbd_rule``) on the device and
+    its postprocess (``postprocess_packed_sun``) on the host; accumulate
+    detections.
 
     Returns (det_results, stats): {img: {class: [[x1, y1, x2, y2, tx, ty, tz,
     l, w, h, ry, score]]}} and {"frustums", "seconds", "frustums_per_s",
-    "sections", "detections", "degenerate", "fetch_waited", "spans"}:
-    ``frustums`` counts the real frustums streamed here, ``sections`` the
-    selected sections, ``detections`` those kept, ``degenerate`` those
-    dropped for a size under 1 cm, ``fetch_waited`` the groups whose
-    outputs were not back yet when fetched (0 off a card) and ``spans`` the
-    host time of the call's parts, ``serve.*`` as ``run_test`` names
-    them."""
-    spans: dict = {}
-    with span("serve.call", spans):
-        with span("serve.start", spans):
-            strict_fp32()
-            model.eval()
-            device = next(model.parameters()).device
-            group = max(int(group), 1)
-            infer_group = build_infer_group_sun_fn(model, spec, method)
-            pc, pi = mesh.process_count(), mesh.process_index()
-            loader = BatchLoader(dataset, batch_size, spec.num_scales, shuffle=False,
-                                 drop_last=False, pad_last=True, seed=0,
-                                 num_workers=num_workers,
-                                 batch_shard=(pi, pc) if pc > 1 else None)
-        num_groups = (len(range(pi, len(loader), pc)) + group - 1) // group
-        det_results: dict = {}
-        counts = {"sections": 0, "detections": 0, "degenerate": 0}
-
-        def upload(x, dtype=None):
-            return upload_tensor(torch.from_numpy(np.ascontiguousarray(x)), device, dtype)
-
-        def upload_group(batches) -> tuple:
-            return (upload(np.stack([b["point_cloud"] for b in batches]), points_dtype),
-                    upload(np.stack([b["one_hot"] for b in batches])),
-                    *(upload(np.stack([b["refs"][i] for b in batches]))
-                      for i in range(spec.num_scales)))
-
-        def postprocess(host, g, batch) -> None:
-            packed_g, cnt_g = host
-            postprocess_packed_sun(packed_g[g], cnt_g[g], batch, dataset, det_results, counts)
-
-        t_start = time.time()
-        streamed = stream_groups(loader.epoch(0), group, inflight, device, spans,
-                                 upload_group, infer_group, postprocess,
-                                 pad_tail=True, logger=logger, num_groups=num_groups)
-        n = streamed["frustums"]
-        elapsed = time.time() - t_start
-        where = f" on rank {pi} of {pc}" if pc > 1 else ""
-        logger.info(f"streamed {n} frustums{where} in {elapsed:.2f}s = "
-                    f"{n / elapsed:.0f} frustums/s end-to-end ({counts['sections']} "
-                    f"selected sections, {counts['detections']} detections, "
-                    f"{counts['degenerate']} degenerate)")
-        stats = {"frustums": n, "seconds": elapsed, "frustums_per_s": n / elapsed,
-                 **counts, "fetch_waited": streamed["fetch_waited"]}
-        if pc > 1:  # one collective merges the ranks' detection dicts
-            det_results = mesh.allgather_detections(det_results)
-    stats["spans"] = spans
-    return det_results, stats
+    "sections", "detections", "degenerate", "fetch_waited", "spans"} as
+    ``serve_dataset`` counts them: ``sections`` the selected sections,
+    ``detections`` those kept and ``degenerate`` those dropped for a size
+    under 1 cm."""
+    return serve_dataset(model, spec, dataset, batch_size, method, logger, sunrgbd_rule,
+                         postprocess_packed_sun,
+                         {"sections": 0, "detections": 0, "degenerate": 0},
+                         num_workers, group, inflight, points_dtype)
 
 
 def to_corner_results(det_results, nms_threshold=None):

@@ -212,8 +212,7 @@ def rank_main(job_path: str) -> int:
             out["step"] = state.step
             # the test driver's grouped dispatch on this rank's shard: a
             # group of one batch of 2 frustums, as one device of the JAX mesh
-            infer = build_infer_group_fn(state.model.eval(), spec, "nms",
-                                         min(16, spec.num_out))
+            infer = build_infer_group_fn(state.model.eval(), spec, "nms")
             packed, cnt = infer(batch["point_cloud"][None], batch["one_hot"][None],
                                 tuple(r[None] for r in batch["refs"]))
             forwards += 1

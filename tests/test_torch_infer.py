@@ -17,7 +17,12 @@
 * in float64 it is not: both packages' ``build_infer_group_fn`` on the same
   weights and the provider's ladders, each package's host postprocess and
   KITTI writer, write byte-identical result files on the 12-frame v1 split
-  and on the difficulty mix.
+  and on the difficulty mix;
+* in float64, ``run_test``'s detections equal, bit for bit, JAX's host
+  selection and postprocess (``postprocess_batch``) over the port's own
+  grouped forward and full decode, the padded tail group on the provider's
+  ladders, for 'top' and 'nms', and for 'nms' with a cls head that keeps
+  all 70 sections of every frustum, more than the 64 an earlier cap kept.
 """
 
 import logging
@@ -43,9 +48,13 @@ from frustum_convnet_tpu.models.net import FrustumConvNet as JaxNet
 from frustum_convnet_tpu.models.registry import get_model_spec
 from frustum_convnet_tpu.parallel.train_step import (TrainStepConfig, init_state,
                                                      make_optimizer)
+from frustum_convnet_tpu_torch import configs as tconfigs
+from frustum_convnet_tpu_torch.data.provider import FrustumProvider as TFrustumProvider
 from frustum_convnet_tpu_torch.engine import test as ttest
+from frustum_convnet_tpu_torch.engine.loader import BatchLoader as TBatchLoader
 from frustum_convnet_tpu_torch.evaluation.kitti_writer import (
     write_detection_results as port_write_detection_results)
+from frustum_convnet_tpu_torch.models.det import decode_outputs
 from frustum_convnet_tpu_torch.models.net import FrustumConvNet
 from frustum_convnet_tpu_torch.models.weights import from_jax
 
@@ -130,12 +139,12 @@ def test_infer_group_matches_jax(rng, method, use_basis):
         refs_g = (rdir, roff)
     else:
         refs_g = tuple(r.reshape(g, b, *r.shape[1:]) for r in pts["refs"])
-    cap = 1 if method == "top" else min(16, spec.num_out)
+    cap = 1 if method == "top" else spec.num_out  # the port packs every section
 
     jfn = jtest.build_infer_group_fn(jmodel, spec, method, cap, z_grids=z_grids)
     jpacked, jcnt = jfn(state.params, state.batch_stats, jnp.asarray(pts_g),
                         jnp.asarray(oh_g), tuple(jnp.asarray(r) for r in refs_g))
-    tfn = ttest.build_infer_group_fn(net, spec, method, cap, z_grids=z_grids)
+    tfn = ttest.build_infer_group_fn(net, spec, method, z_grids=z_grids)
     packed, cnt = tfn(torch.from_numpy(pts_g), torch.from_numpy(oh_g),
                       tuple(torch.from_numpy(r) for r in refs_g))
     assert packed.shape == jpacked.shape == (g, b, cap, 8)
@@ -234,6 +243,88 @@ def _driver_matches_jax(kitti_val):
     assert out["ap"] == ap_j
 
 
+def _grouped_full_decode(model, spec, dataset, method, batch_size, group) -> dict:
+    """``run_test``'s serving written out with JAX's host selection: groups
+    of whole batches (the tail padded by repeating its last) through the
+    port's forward, whole groups on the ladders rebuilt from the basis as
+    ``build_infer_group_fn`` rebuilds them and the tail on the provider's,
+    every section decoded and brought back, then JAX's ``postprocess_batch``
+    batch by batch."""
+    loader = TBatchLoader(dataset, batch_size, spec.num_scales, shuffle=False,
+                          drop_last=False, pad_last=True, seed=0, num_workers=1)
+    batches = list(loader.epoch(0))
+    z = [torch.from_numpy(np.asarray(d, np.float32)) for d in dataset.ref_depths()]
+    det: dict = {}
+    for lo in range(0, len(batches), group):
+        real = batches[lo:lo + group]
+        padded = real + [real[-1]] * (group - len(real))
+
+        def flat(x):
+            return torch.from_numpy(np.concatenate(x))
+
+        with torch.inference_mode():
+            pts = flat([b["point_cloud"] for b in padded]).to(torch.float16).float()
+            if len(real) == group:
+                refs = ttest.rebuild_ladders(flat([b["ref_dir"] for b in padded]),
+                                             flat([b["ref_off"] for b in padded]), z)
+            else:
+                refs = [flat([b["refs"][i] for b in padded]) for i in range(spec.num_scales)]
+            cls_logits, reg = model(pts, flat([b["one_hot"] for b in padded]), list(refs))
+            out = {k: v.numpy() for k, v in
+                   decode_outputs(spec, cls_logits, reg, refs[1]).items()}
+        for j, batch in enumerate(real):
+            jtest.postprocess_batch({k: v[j * batch_size:(j + 1) * batch_size]
+                                     for k, v in out.items()}, batch, dataset, method, det)
+    return det
+
+
+@pytest.mark.parametrize("method, fg_bias", [("top", 1.5), ("nms", 1.5), ("nms", 300.0)],
+                         ids=["top", "nms", "nms-every-section"])
+def test_detections_equal_the_grouped_full_decode_bit_for_bit(kitti_val, method, fg_bias):
+    """float64, batches of 5 in groups of 2 with a partial last group, 70
+    sections a frustum (strides 0.5-4 to 70 m); the cls head 30 times as
+    decisive, so 'nms' keeps several sections in some frustums and none in
+    others (``fg_bias`` 300: every section of every frustum)."""
+    cfg = tconfigs.get_default_cfg()
+    tconfigs.merge_cfg_from_file("cfgs/det_sample.yaml", cfg)
+    tconfigs.merge_cfg_from_list(TINY_OVERRIDES + [
+        "DATA.DATA_ROOT", kitti_val["pickle_dir"], "DATA.MAX_DEPTH", "70",
+        "DATA.STRIDE", "(0.5, 1.0, 2.0, 4.0)", "DATA.HEIGHT_HALF", "(0.5, 1.0, 2.0, 4.0)"],
+        cfg)
+    spec = tconfigs.get_model_spec(cfg)
+    assert spec.num_out == 70
+    dataset = TFrustumProvider(cfg, "val", one_hot=True, from_rgb_detection=True)
+    batch_size, group = 5, 2
+    n_batches = -(-len(dataset) // batch_size)
+    assert n_batches % group and len(dataset) % batch_size  # a padded tail
+    model = FrustumConvNet(spec)
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        model.cls_out.weight.mul_(30.0)
+        model.cls_out.bias.copy_(torch.tensor([-fg_bias, fg_bias]))
+    model = model.double().eval()
+    logger = logging.getLogger("torch_grouped_full_decode")
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+
+    got, stats = ttest.run_test(model, spec, dataset, batch_size, method, logger,
+                                num_workers=1, group=group, inflight=2,
+                                points_dtype=torch.float16)
+    want = _grouped_full_decode(model, spec, dataset, method, batch_size, group)
+    assert list(got) == list(want)
+    for img, by_cls in want.items():
+        assert list(got[img]) == list(by_cls), img
+        for cls, rows in by_cls.items():
+            g, w = np.asarray(got[img][cls], np.float64), np.asarray(rows, np.float64)
+            assert g.shape == w.shape and np.array_equal(g, w), (img, cls)
+    assert stats["detections"] == sum(len(r) for c in want.values() for r in c.values()) > 0
+    assert stats["overflow_reruns"] == 0 and stats["frustums"] == len(dataset)
+    if method == "nms":
+        assert stats["sections"] > stats["frustums"]  # more than the argmax fallback
+    if fg_bias > 10:  # every section comes back
+        assert stats["sections"] == stats["frustums"] * spec.num_out
+
+
 @pytest.mark.parametrize("difficulty_mix,flagship", [(False, False), (True, False), (True, True)],
                          ids=["v1", "mix", "mix-flagship"])
 def test_float64_serving_writes_byte_identical_files(tmp_path, difficulty_mix, flagship):
@@ -244,8 +335,8 @@ def test_float64_serving_writes_byte_identical_files(tmp_path, difficulty_mix, f
     writer with the driver's NMS threshold: the result files are equal byte
     for byte, at the tiny width and at the protocol's. Both infer functions
     cast the points to float32 first, as the provider already stores them,
-    so the first layer sees the same inputs. The cap is every section, so
-    no batch overflows to the full path."""
+    so the first layer sees the same inputs. JAX's cap is every section, so
+    no batch of its overflows to its full path."""
     val = _kitti_val(tmp_path, difficulty_mix=difficulty_mix)
     cfg = get_default_cfg()
     merge_cfg_from_file("cfgs/det_sample.yaml", cfg)
@@ -271,23 +362,26 @@ def test_float64_serving_writes_byte_identical_files(tmp_path, difficulty_mix, f
                                       tuple(jnp.asarray(r[None]) for r in b["refs"])))
                    for b in batches]
     net = _port_model(spec, state).double()
-    tfn = ttest.build_infer_group_fn(net, spec, "nms", cap)
+    tfn = ttest.build_infer_group_fn(net, spec, "nms")
     port_out = [tuple(t.numpy() for t in tfn(
         torch.from_numpy(b["point_cloud"][None]), torch.from_numpy(b["one_hot"][None]),
         tuple(torch.from_numpy(r[None]) for r in b["refs"]))) for b in batches]
+
+    def jax_post(*args):
+        n, overflow = jtest.postprocess_packed(*args, cap)
+        assert not overflow
+        return n
 
     with open(os.path.join(val["kitti_root"], "image_sets", "val.txt")) as f:
         ids = [int(line) for line in f if line.strip()]
     dirs = []
     for name, outs, post, write in (
-            ("jax", jax_out, jtest.postprocess_packed, write_detection_results),
+            ("jax", jax_out, jax_post, write_detection_results),
             ("port", port_out, ttest.postprocess_packed, port_write_detection_results)):
         det, n_dets = {}, 0
         for (packed, cnt), b in zip(outs, batches):
             assert packed.dtype == np.float64, name
-            n, overflow = post(packed[0], cnt[0], b, dataset, det, cap)
-            assert not overflow
-            n_dets += n
+            n_dets += post(packed[0], cnt[0], b, dataset, det)
         assert n_dets > 0, name
         dirs.append(write(str(tmp_path / name), det, ids, nms_threshold=cfg.TEST.THRESH))
     files = sorted(os.listdir(dirs[0]))

@@ -1,22 +1,25 @@
-"""The port's copy of the KITTI driver's host postprocess against the JAX
-driver's, side by side on the CPU.
+"""The port's copy of the KITTI driver's host postprocess, and its device
+selection, against the JAX driver's, side by side on the CPU.
 
 ``frustum_convnet_tpu_torch/engine/test.py`` carries the JAX driver's numpy
-postprocess (``select_foreground_batch``, ``_accumulate_detections``,
-``postprocess_batch``, ``postprocess_packed``), because the JAX module
-imports jax at the top. The same seeded numpy arrays go through both
-copies, for 'top' and 'nms', on batches with padding rows past ``_real``,
-a frustum with no foreground section (the argmax fallback), degenerate
-sizes (dropped), with and without the 2D detector's probability and the
-refine stage's ``ref_center``, and a packed batch over its cap. Both
-sides are numpy code, so the results must be exactly equal: the same index
-arrays, counts, flags and detection dicts, number for number.
+postprocess (``_accumulate_detections``, ``postprocess_packed``), because
+the JAX module imports jax at the top, and selects on the device
+(``kitti_rule``, ``compact_sections``, ``take_sections``) what JAX's
+``select_foreground_batch`` selects on the host. The same seeded numpy
+arrays go through both, for 'top' and 'nms', on batches with padding rows
+past ``_real``, a frustum with no foreground section (the argmax fallback),
+degenerate sizes (dropped), with and without the 2D detector's probability
+and the refine stage's ``ref_center``. The selection and the packed path
+over one batch's full decode must give exactly what JAX's
+``select_foreground_batch`` and ``postprocess_batch`` give: the same index
+arrays, counts and detection dicts, number for number.
 """
 
 import types
 
 import numpy as np
 import pytest
+import torch
 
 from frustum_convnet_tpu.engine import test as jtest
 from frustum_convnet_tpu_torch.engine import test as ttest
@@ -58,14 +61,12 @@ def _out(rng) -> dict:
             "sizes": sizes}
 
 
-def _packed(rng, overflow: bool):
+def _packed(rng):
     packed = rng.normal(0, 2, (B, CAP, 8)).astype(np.float32)
     packed[..., 4:7] = np.abs(packed[..., 4:7]) + 0.5
     packed[2, 0, 6] = 0.001  # a degenerate height
     cnt = rng.integers(0, CAP + 1, B).astype(np.int32)
     cnt[REAL:] = CAP + 3  # padding rows past _real never count
-    if overflow:
-        cnt[1] = CAP + 1
     return packed, cnt
 
 
@@ -89,39 +90,62 @@ def _same(a, b, where="result"):
 FLAGS = {"plain": (False, False), "rgb_prob": (True, False), "refine": (True, True)}
 
 
+def _packed_path(out: dict, method: str):
+    """The port's device selection over a full decode (numpy arrays in
+    ``out``): ``kitti_rule``, ``compact_sections`` and ``take_sections``, as
+    ``build_infer_group_fn`` runs them. Returns (sel, cnt, packed) as numpy."""
+    dev = {k: torch.from_numpy(v) for k, v in out.items()}
+    fg, value = ttest.kitti_rule(dev, method != "nms")
+    sel, cnt = ttest.compact_sections(dev["cls_probs"][:, :, 1], fg)
+    packed = ttest.take_sections(sel, dev["centers"], dev["headings"], dev["sizes"], value)
+    return sel.numpy(), cnt.numpy(), packed.numpy()
+
+
 @pytest.mark.parametrize("method", ["top", "nms"])
-def test_select_foreground_batch_matches_jax(method):
+def test_compact_sections_matches_jax_selection(method):
+    """At S = L ('nms') or 1 ('top') the port selects, frustum by frustum
+    and in the same order, the sections JAX's host selection takes."""
     rng = np.random.default_rng(21)
-    probs = _out(rng)["cls_probs"]
+    out = _out(rng)
+    out["cls_probs"][2] = 0.5  # ties everywhere: the argmax takes the first
+    sel, cnt, _ = _packed_path(out, method)
+    assert sel.shape == (B, L if method == "nms" else 1)
     for real in (REAL, B, 0):
-        _same(ttest.select_foreground_batch(probs, real, method),
-              jtest.select_foreground_batch(probs, real, method), f"real={real}")
+        det_b, det_s = np.nonzero(np.arange(sel.shape[1])[None, :] < cnt[:real, None])
+        _same((det_b, sel[det_b, det_s]),
+              jtest.select_foreground_batch(out["cls_probs"], real, method), f"real={real}")
 
 
 @pytest.mark.parametrize("flags", sorted(FLAGS))
 @pytest.mark.parametrize("method", ["top", "nms"])
-def test_postprocess_batch_matches_jax(method, flags):
+def test_packed_path_matches_jax_full_decode(method, flags):
+    """The one serving path against the full decode it replaced: the
+    device selection, the packing and ``postprocess_packed`` over one
+    batch's full decode give exactly the detections and the count of JAX's
+    ``postprocess_batch``."""
     rng = np.random.default_rng(22)
     dataset, out = _dataset(rng), _out(rng)
     batch = _batch(rng, *FLAGS[flags])
+    _, cnt, packed = _packed_path(out, method)
     got, want = {}, {}
-    n_got = ttest.postprocess_batch(out, batch, dataset, method, got)
+    n_got = ttest.postprocess_packed(packed, cnt, batch, dataset, got)
     n_want = jtest.postprocess_batch(out, batch, dataset, method, want)
     _same((n_got, got), (n_want, want))
     assert n_got > 0 and sum(len(r) for d in got.values() for r in d.values()) == n_got
 
 
 @pytest.mark.parametrize("flags", sorted(FLAGS))
-@pytest.mark.parametrize("overflow", [False, True], ids=["within_cap", "overflow"])
-def test_postprocess_packed_matches_jax(overflow, flags):
+@pytest.mark.parametrize("cap", [CAP], ids=["within_cap"])
+def test_postprocess_packed_matches_jax(cap, flags):
+    """JAX's takes its cap, the packed width, and never overflows here."""
     rng = np.random.default_rng(23)
-    dataset, (packed, cnt) = _dataset(rng), _packed(rng, overflow)
+    dataset, (packed, cnt) = _dataset(rng), _packed(rng)
     batch = _batch(rng, *FLAGS[flags])
     got, want = {}, {}
-    res_got = ttest.postprocess_packed(packed, cnt, batch, dataset, got, CAP)
-    res_want = jtest.postprocess_packed(packed, cnt, batch, dataset, want, CAP)
-    _same((res_got, got), (res_want, want))
-    assert res_got[1] == overflow and (res_got[0] > 0) != overflow
+    n_got = ttest.postprocess_packed(packed, cnt, batch, dataset, got)
+    n_want, overflow = jtest.postprocess_packed(packed, cnt, batch, dataset, want, cap)
+    _same((n_got, got), (n_want, want))
+    assert not overflow and n_got > 0
 
 
 def test_accumulate_detections_matches_jax():
